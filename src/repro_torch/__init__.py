@@ -1,0 +1,15 @@
+"""repro_torch — PTMT (parallel motif-transition discovery) on PyTorch/CUDA.
+
+The PyTorch port of the ``repro`` package, module for module at the same
+relative paths.  It imports ``torch`` and ``numpy`` only.
+
+Subpackages:
+  core     the paper's algorithm (TZP + expansion + signed aggregation)
+  kernels  hand-written CUDA kernels for Hopper, each beside its plain
+           PyTorch version
+  data     synthetic temporal-graph generators
+  obs      metrics, spans and timing helpers
+  launch   the mining CLI
+"""
+
+__version__ = "1.0.0"

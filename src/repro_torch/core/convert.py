@@ -1,0 +1,84 @@
+"""Carry data, layouts, count tables and configs across packages.
+
+PTMT has no model weights: the state that crosses between the JAX package
+and this port is data (edge streams), zone plans and layouts, count tables
+and configs.  These helpers take anything numpy can read (numpy arrays, or
+the JAX package's arrays through ``np.asarray``) and never import the JAX
+package.  ``ZonePlan.to_json``/``from_json`` already round-trip plans.
+"""
+
+from __future__ import annotations
+
+import json
+
+import numpy as np
+import torch
+
+from .aggregation import CodeCounts
+from .config import MiningConfig
+from .temporal_graph import TemporalGraph, from_edges
+from .tzp import FusedZoneLayout
+
+#: the JAX package's registry names -> their counterparts in this port
+BACKEND_NAMES = {"pallas": "cuda", "xla": "torch"}
+
+_LAYOUT_ARRAYS = ("u", "v", "t", "valid", "zone_id", "sign", "lo", "hi")
+
+
+def graph_from_arrays(u, v, t) -> TemporalGraph:
+    """A :class:`TemporalGraph` from edge arrays (sorted by time, stably)."""
+    return from_edges(np.asarray(u), np.asarray(v), np.asarray(t))
+
+
+def fused_layout_from_arrays(*, blk: int, kind: str = "bucketed",
+                             bucket_shapes=(), n_zones: int = 0,
+                             overflow: int = 0, bounds: str = "full",
+                             **arrays) -> FusedZoneLayout:
+    """A :class:`FusedZoneLayout` from its eight flat arrays
+    (``u/v/t/valid/zone_id/sign/lo/hi``) plus its metadata."""
+    missing = sorted(set(_LAYOUT_ARRAYS) - set(arrays))
+    extra = sorted(set(arrays) - set(_LAYOUT_ARRAYS))
+    if missing or extra:
+        raise ValueError(f"layout arrays: missing {missing}, unknown {extra}")
+    return FusedZoneLayout(
+        **{k: np.asarray(arrays[k], np.int32) for k in _LAYOUT_ARRAYS},
+        blk=int(blk), kind=kind,
+        bucket_shapes=tuple(tuple(int(x) for x in s) for s in bucket_shapes),
+        n_zones=int(n_zones), overflow=int(overflow), bounds=bounds,
+    )
+
+
+def counts_from_arrays(codes, counts, unique_mask, *,
+                       device=None) -> CodeCounts:
+    """A :class:`CodeCounts` of tensors from three arrays."""
+    return CodeCounts(
+        codes=torch.as_tensor(np.asarray(codes, np.int32), device=device),
+        counts=torch.as_tensor(np.asarray(counts, np.int32), device=device),
+        unique_mask=torch.as_tensor(np.asarray(unique_mask, bool),
+                                    device=device),
+    )
+
+
+def counts_to_numpy(c) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``(codes, counts, unique_mask)`` numpy arrays of a count table of
+    either package."""
+    host = lambda x: (x.detach().cpu().numpy() if torch.is_tensor(x)
+                      else np.asarray(x))
+    return host(c.codes), host(c.counts), host(c.unique_mask)
+
+
+def config_from_json(data: str | bytes | dict) -> MiningConfig:
+    """A :class:`MiningConfig` from either package's ``to_json``.
+
+    Registry names of the JAX package map to their counterparts here
+    (``pallas`` -> ``cuda``, ``xla`` -> ``torch``); every other field
+    carries over as it is.
+    """
+    if not isinstance(data, dict):
+        data = json.loads(data)
+    data = dict(data)
+    for field in ("backend", "fused_backend"):
+        name = data.get(field)
+        if name in BACKEND_NAMES:
+            data[field] = BACKEND_NAMES[name]
+    return MiningConfig.from_json(data)
