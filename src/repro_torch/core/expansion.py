@@ -17,6 +17,14 @@ State (structure-of-arrays over ``[Z, C]`` candidates):
   ``nodes``   int32[Z, C, K]  first-occurrence node table, K = l_max + 1,
                               -1 = empty
   ``code``    int32[Z, C, L]  multi-limb relabeling code (see core.encoding)
+  ``ts``      int32[Z, C, l_max] per-step absorption timestamps
+                              (``with_ts`` only; ``ts[..., k]`` is the
+                              time of the k-th absorbed edge, ``ts[..., 0]``
+                              the seed time).  The config-lattice co-mining
+                              path derives every smaller ``(delta, l_max)``
+                              config's counts from one dominating sweep by
+                              prefix-truncating candidates on these
+                              timestamps (:func:`derive_lengths`).
 
 Each step only touches the candidate columns whose outputs the edge can
 still change: columns past the edge's own slot are not seeded yet, and a
@@ -44,6 +52,7 @@ class ZoneState(NamedTuple):
     n_nodes: torch.Tensor
     nodes: torch.Tensor
     code: torch.Tensor
+    ts: torch.Tensor | None = None
 
 
 class ZoneResult(NamedTuple):
@@ -52,9 +61,11 @@ class ZoneResult(NamedTuple):
 
     code: torch.Tensor     # int32[..., C, L]
     length: torch.Tensor   # int32[..., C] (0 for padding slots)
+    ts: torch.Tensor | None = None   # int32[..., C, l_max] (``with_ts``)
 
 
-def init_state(z: int, e_cap: int, l_max: int, *, device) -> ZoneState:
+def init_state(z: int, e_cap: int, l_max: int, *, device,
+               with_ts: bool = False) -> ZoneState:
     k = l_max + 1
     shape = (z, e_cap)
     return ZoneState(
@@ -64,6 +75,8 @@ def init_state(z: int, e_cap: int, l_max: int, *, device) -> ZoneState:
         n_nodes=torch.zeros(shape, dtype=torch.int32, device=device),
         nodes=torch.full((*shape, k), -1, dtype=torch.int32, device=device),
         code=encoding.empty_code(shape, l_max, device=device),
+        ts=(torch.zeros((*shape, l_max), dtype=torch.int32, device=device)
+            if with_ts else None),
     )
 
 
@@ -124,6 +137,14 @@ def step(state: ZoneState, edge, *, delta: int, l_max: int,
     length = state.length + extend.to(torch.int32)
     last_t = torch.where(extend, t, state.last_t)
     n_nodes = torch.where(extend, nn2, state.n_nodes)
+    ts = state.ts
+    if ts is not None:
+        # an extension records this edge's time at step `length` (before
+        # the increment)
+        step_iota = torch.arange(ts.shape[2], dtype=torch.int32, device=dev)
+        ts = torch.where(
+            extend[..., None] & (step_iota == state.length[..., None]),
+            t[..., None], ts)
 
     # seed the candidate owned by this edge (slot == stream index): one
     # column of the window, written in place into the fresh tensors above
@@ -144,9 +165,11 @@ def step(state: ZoneState, edge, *, delta: int, l_max: int,
             seed_code, torch.ones(z, dtype=torch.int32, device=dev),
             seed_nn)
         code[:, i] = torch.where(seed[:, None], seed_code, code[:, i])
+        if ts is not None:
+            ts[:, i, 0] = torch.where(seed, t[:, 0], ts[:, i, 0])
 
     return ZoneState(length=length, last_t=last_t, done=done,
-                     n_nodes=n_nodes, nodes=nodes, code=code)
+                     n_nodes=n_nodes, nodes=nodes, code=code, ts=ts)
 
 
 def _live_starts(t, valid, horizon: int) -> list[int]:
@@ -162,39 +185,79 @@ def _live_starts(t, valid, horizon: int) -> list[int]:
     return starts.amin(dim=0).tolist()
 
 
-def scan_zones(u, v, t, valid, *, delta: int, l_max: int) -> ZoneResult:
+def scan_zones(u, v, t, valid, *, delta: int, l_max: int,
+               with_ts: bool = False) -> ZoneResult:
     """Run the full expansion over a ``[Z, E]`` padded zone batch.
+
+    The plain version of the dense CUDA kernel
+    (``kernels/zone_scan/csrc/zone_scan.cu``) and the ``ref`` backend's
+    scan.
 
     Args:
       u, v, t: int32[Z, E] padded edge streams (time-ordered within a zone).
       valid:   bool[Z, E] real-edge mask.
+      with_ts: also return per-step absorption timestamps (the co-mining
+        path's input).
     Returns:
-      ZoneResult with per-seed final codes ``[Z, E, L]`` and lengths
-      ``[Z, E]``; padding slots have length 0.
+      ZoneResult with per-seed final codes ``[Z, E, L]``, lengths
+      ``[Z, E]`` and, with ``with_ts``, timestamps ``[Z, E, l_max]``;
+      padding slots have length 0 and all-zero codes and timestamps.
     """
     z, e_cap = u.shape
     dev = u.device
     u, v, t = (x.to(torch.int32) for x in (u, v, t))
     valid = valid.to(torch.bool)
-    full = init_state(z, e_cap, l_max, device=dev)
+    full = init_state(z, e_cap, l_max, device=dev, with_ts=with_ts)
     if z == 0 or e_cap == 0:
-        return ZoneResult(code=full.code, length=full.length)
+        return ZoneResult(code=full.code, length=full.length, ts=full.ts)
     starts = _live_starts(t, valid, int(delta) * int(l_max))
     any_valid = valid.any(dim=0).tolist()
     for j in range(e_cap):
         if not any_valid[j]:
             continue        # an invalid edge changes no candidate
         a, b = starts[j], j + 1
-        part = ZoneState(*(x[:, a:b] for x in full))
+        part = ZoneState(*(None if x is None else x[:, a:b] for x in full))
         new = step(part, (u[:, j], v[:, j], t[:, j], valid[:, j], j),
                    delta=delta, l_max=l_max, col0=a)
         for dst, src in zip(full, new):
-            dst[:, a:b] = src
-    return ZoneResult(code=full.code, length=full.length)
+            if dst is not None:
+                dst[:, a:b] = src
+    return ZoneResult(code=full.code, length=full.length, ts=full.ts)
 
 
-def scan_zone(u, v, t, valid, *, delta: int, l_max: int) -> ZoneResult:
+def scan_zone(u, v, t, valid, *, delta: int, l_max: int,
+              with_ts: bool = False) -> ZoneResult:
     """:func:`scan_zones` over one zone's padded ``[E]`` edge stream."""
     res = scan_zones(u[None], v[None], t[None], valid[None], delta=delta,
-                     l_max=l_max)
-    return ZoneResult(code=res.code[0], length=res.length[0])
+                     l_max=l_max, with_ts=with_ts)
+    return ZoneResult(*(None if x is None else x[0] for x in res))
+
+
+def derive_lengths(length, ts, *, delta: int, l_max: int):
+    """Prefix length of each dominating-sweep candidate under a smaller
+    config.
+
+    The config-lattice co-mining lemma: zone streams are time-sorted, so
+    for ``delta <= delta_dom`` and ``l_max <= l_max_dom`` the process the
+    smaller config would have mined for a candidate is exactly the longest
+    prefix of the dominating config's absorbed edge sequence in which
+    every consecutive absorption gap ``ts[k] - ts[k-1]`` is ``<= delta``,
+    capped at ``l_max`` edges.
+
+    Args:
+      length: int32[...] dominating-sweep process lengths.
+      ts:     int32[..., l_max_dom] absorption timestamps (``with_ts``).
+    Returns:
+      int32[...] prefix lengths under ``(delta, l_max)``; 0 stays 0.
+    """
+    l_dom = ts.shape[-1]
+    if l_dom > 1:
+        steps = torch.arange(1, l_dom, dtype=torch.int32, device=ts.device)
+        gaps = ts[..., 1:] - ts[..., :-1]
+        ok = (steps < length[..., None]) & (gaps <= delta)
+        run = torch.cumprod(ok.to(torch.int32), dim=-1,
+                            dtype=torch.int32).sum(dim=-1)
+    else:
+        run = torch.zeros_like(length)
+    out = torch.clamp(1 + run, max=l_max).to(torch.int32)
+    return torch.where(length > 0, out, 0)

@@ -22,6 +22,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 _KERNELS = Path(__file__).resolve().parent
@@ -34,6 +35,8 @@ _lock = threading.Lock()
 _loaded: dict[Path, ctypes.CDLL] = {}
 #: ``ptxas -v`` report per built source (registers, spills), for the record
 build_logs: dict[str, str] = {}
+#: seconds from the start of :func:`build_all` to each source's build end
+build_seconds: dict[str, float] = {}
 
 
 def sources() -> list[Path]:
@@ -71,8 +74,10 @@ def _lib_path(src: Path) -> Path:
 def _start(src: Path, out: Path):
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
+    # the compiler's report goes to a file: a full pipe would stall it
+    with open(tmp.with_suffix(".log"), "w") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                text=True)
     return proc, tmp, cmd
 
 
@@ -82,17 +87,26 @@ def build_all(srcs=None) -> dict[Path, Path]:
     srcs = list(srcs) if srcs is not None else sources()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     libs = {src: _lib_path(src) for src in srcs}
+    t0 = time.perf_counter()
     running = [(src, *_start(src, out)) for src, out in libs.items()
                if not out.exists()]
     failed = []
-    for src, proc, tmp, cmd in running:
-        log, _ = proc.communicate()
-        build_logs[src.name] = log
-        if proc.returncode != 0:
-            failed.append(f"{' '.join(cmd)}\n{log}")
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, libs[src])
+    while running:
+        done = [r for r in running if r[1].poll() is not None]
+        if not done:
+            time.sleep(0.05)
+            continue
+        for src, proc, tmp, cmd in done:
+            running.remove((src, proc, tmp, cmd))
+            build_seconds[src.name] = time.perf_counter() - t0
+            log_path = tmp.with_suffix(".log")
+            build_logs[src.name] = log = log_path.read_text()
+            log_path.unlink()
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{log}")
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, libs[src])
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return libs

@@ -19,8 +19,14 @@
 //   edges.  After either, no edge can change code or length (a time-out
 //   only sets `done`, which the outputs never read), so the exit is exact.
 //   It is the per-lane form of the TPU kernel's chunk skip;
-// * lane state (length, last_t, done, n_nodes, nodes[K], code[L]) lives in
-//   registers, l_max is a template parameter (see edge_update.cuh).
+// * lane state (length, last_t, done, n_nodes, nodes[K], code[L], and
+//   ts[l_max] with WITH_TS) lives in registers, l_max and WITH_TS are
+//   template parameters (see edge_update.cuh, which also holds the row
+//   sweep this kernel shares with the dense kernel zone_scan.cu).
+//
+// WITH_TS is the TPU kernel's `with_ts=True` variant (state and output at
+// zone_scan.py:381, :425-426, :484-485): it also writes ts[S, l_max], the
+// absorption time of each step, for the config-lattice co-mining fold.
 //
 // What bounds it on this card: integer operations and divergence.  Each
 // visited slot costs ~2K compares for the node-table lookup plus the gap
@@ -31,11 +37,15 @@
 // edge chunks in shared memory, a warp-cooperative sweep that splits one
 // long lane's window, and balancing lanes whose windows differ in length.
 //
+// WITH_TS adds l_max int32 stores per lane and l_max registers; the sweep
+// is the same.
+//
 // C interface (bound with ctypes):
-//   int fused_zone_scan_flat(u, v, t, valid, zone_id, hi, code, length,
-//                            n_slots, blk, delta, l_max, stream)
+//   int fused_zone_scan_flat(u, v, t, valid, zone_id, hi, code, length, ts,
+//                            n_slots, blk, delta, l_max, with_ts, stream)
 // returns cudaGetLastError() after the launch (0 on success), or -1 for
-// an l_max this build does not instantiate.
+// an l_max this build does not instantiate.  ts is ignored (may be null)
+// when with_ts is 0.
 
 #include <cuda_runtime.h>
 
@@ -45,50 +55,38 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <int LMAX>
+template <int LMAX, bool WITH_TS>
 __global__ void __launch_bounds__(kThreads)
 fused_zone_scan_kernel(const int* __restrict__ u, const int* __restrict__ v,
                        const int* __restrict__ t,
                        const int* __restrict__ valid,
                        const int* __restrict__ zone_id,
                        const int* __restrict__ hi, int* __restrict__ code,
-                       int* __restrict__ length, int n_slots, int blk,
-                       int delta) {
-  using State = ptmt::LaneState<LMAX>;
+                       int* __restrict__ length, int* __restrict__ ts,
+                       int n_slots, int blk, int delta) {
   const int q = blockIdx.x * blockDim.x + threadIdx.x;
   if (q >= n_slots) return;
   const int end = min(hi[q / blk], n_slots);
 
+  ptmt::LaneState<LMAX, WITH_TS> s;
   if (!valid[q] || q >= end) {
-    length[q] = 0;
-#pragma unroll
-    for (int m = 0; m < State::L; ++m) code[q * State::L + m] = 0;
-    return;
+    s.clear();
+  } else {
+    s.seed(u[q], v[q], t[q]);
+    ptmt::sweep_row(s, u, v, t, valid, zone_id, zone_id[q], q + 1, end,
+                    delta);
   }
-
-  State s;
-  s.seed(u[q], v[q], t[q]);
-  const int zid = zone_id[q];
-  if (s.length < LMAX) {
-    for (int j = q + 1; j < end; ++j) {
-      if (zone_id[j] != zid) break;  // end of the lane's zone row
-      if (!valid[j]) continue;       // padding slot: gates nothing
-      if (!s.update(u[j], v[j], t[j], true, delta)) break;
-    }
-  }
-  length[q] = s.length;
-#pragma unroll
-  for (int m = 0; m < State::L; ++m) code[q * State::L + m] = s.code[m];
+  s.store(q, code, length, ts);
 }
 
-template <int LMAX>
+template <int LMAX, bool WITH_TS>
 int launch(const int* u, const int* v, const int* t, const int* valid,
-           const int* zone_id, const int* hi, int* code, int* length,
+           const int* zone_id, const int* hi, int* code, int* length, int* ts,
            int n_slots, int blk, int delta, cudaStream_t stream) {
   if (n_slots > 0) {
     const int grid = (n_slots + kThreads - 1) / kThreads;
-    fused_zone_scan_kernel<LMAX><<<grid, kThreads, 0, stream>>>(
-        u, v, t, valid, zone_id, hi, code, length, n_slots, blk, delta);
+    fused_zone_scan_kernel<LMAX, WITH_TS><<<grid, kThreads, 0, stream>>>(
+        u, v, t, valid, zone_id, hi, code, length, ts, n_slots, blk, delta);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -98,13 +96,15 @@ int launch(const int* u, const int* v, const int* t, const int* valid,
 extern "C" int fused_zone_scan_flat(const int* u, const int* v, const int* t,
                                     const int* valid, const int* zone_id,
                                     const int* hi, int* code, int* length,
-                                    int n_slots, int blk, int delta,
-                                    int l_max, void* stream) {
+                                    int* ts, int n_slots, int blk, int delta,
+                                    int l_max, int with_ts, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PTMT_CASE(L)                                                       \
-  case L:                                                                  \
-    return launch<L>(u, v, t, valid, zone_id, hi, code, length, n_slots,   \
-                     blk, delta, s);
+#define PTMT_CASE(L)                                                        \
+  case L:                                                                   \
+    return with_ts ? launch<L, true>(u, v, t, valid, zone_id, hi, code,     \
+                                     length, ts, n_slots, blk, delta, s)    \
+                   : launch<L, false>(u, v, t, valid, zone_id, hi, code,    \
+                                      length, ts, n_slots, blk, delta, s);
   switch (l_max) {
     PTMT_CASE(1) PTMT_CASE(2) PTMT_CASE(3) PTMT_CASE(4) PTMT_CASE(5)
     PTMT_CASE(6) PTMT_CASE(7) PTMT_CASE(8) PTMT_CASE(9) PTMT_CASE(10)

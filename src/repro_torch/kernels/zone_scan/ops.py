@@ -1,12 +1,20 @@
-"""Wrapper of the fused flat zone-scan kernel, dispatching on device.
+"""Wrappers of the zone-scan kernels, dispatching on device.
 
-``scan_flat`` is the ``cuda`` registry entry's fused scan
-(:mod:`repro_torch.core.backends`).  For CUDA tensors it launches the
-hand-written kernel ``csrc/fused_zone_scan.cu`` on PyTorch's current
-stream (built with ``nvcc`` at first use, see :mod:`.._build`) or raises;
-for CPU tensors — the tests' only device — it runs the kernel's plain
-version :func:`.ref.fused_zone_scan_torch`.  :data:`launches` counts
-kernel launches and nothing else.
+Two hand-written CUDA kernels, each with a ``with_ts`` variant:
+
+* ``csrc/fused_zone_scan.cu`` — the flat single-launch scan over a
+  concatenated slot stream; :func:`scan_flat` is the ``cuda`` registry
+  entry's fused scan (:mod:`repro_torch.core.backends`);
+* ``csrc/zone_scan.cu`` — the dense per-zone scan of a ``[Z, E]`` zone
+  batch; :func:`scan_zones` is the ``cuda`` entry's per-zone scan (the
+  per-bucket path and the sequential baseline).
+
+For CUDA tensors a wrapper launches its kernel on PyTorch's current stream
+(built with ``nvcc`` at first use, see :mod:`.._build`) or raises; for CPU
+tensors — the tests' only device — it runs the kernel's plain version:
+:func:`.ref.fused_zone_scan_torch` and
+:func:`repro_torch.core.expansion.scan_zones`.  :data:`launches` counts
+kernel launches per variant and nothing else.
 """
 
 from __future__ import annotations
@@ -16,31 +24,49 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.core import encoding
+from repro_torch.core import encoding, expansion
 from repro_torch.core.backends import FUSED_BLK_DEFAULT
+from repro_torch.core.expansion import ZoneResult
 
 from . import ref
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_zone_scan.cu"
+_CSRC = Path(__file__).resolve().parent / "csrc"
+FUSED_SOURCE = _CSRC / "fused_zone_scan.cu"
+DENSE_SOURCE = _CSRC / "zone_scan.cu"
 
-#: kernel launches since the last reset (a plain integer, so a run can
-#: show that its main path went through the kernel)
-launches = 0
+#: kernel variants, as named in ``chip_smoke.py``'s kernel line
+VARIANTS = ("fused_zone_scan_flat", "fused_zone_scan_flat_ts",
+            "zone_scan_dense", "zone_scan_dense_ts")
 
-_fn = None
+#: kernel launches per variant since the last :func:`reset_launches` (plain
+#: integers, so a run can show that its path went through each kernel)
+launches = dict.fromkeys(VARIANTS, 0)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: C function name -> (source, argtypes)
+_SIGNATURES = {
+    "fused_zone_scan_flat": (FUSED_SOURCE, [_P] * 9 + [_I] * 5 + [_P]),
+    "zone_scan_dense": (DENSE_SOURCE, [_P] * 7 + [_I] * 5 + [_P]),
+}
+_fns: dict[str, object] = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _kernel(name: str):
+    fn = _fns.get(name)
+    if fn is None:
         from repro_torch.kernels import _build
 
-        fn = _build.load(SOURCE).fused_zone_scan_flat
+        source, argtypes = _SIGNATURES[name]
+        fn = getattr(_build.load(source), name)
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 8
-                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-        _fn = fn
-    return _fn
+        fn.argtypes = argtypes
+        _fns[name] = fn
+    return fn
 
 
 def _check_cuda_inputs(arrays, device) -> None:
@@ -54,51 +80,117 @@ def _check_cuda_inputs(arrays, device) -> None:
             raise ValueError(f"{name} is not contiguous")
 
 
+def _check_params(delta: int, l_max: int) -> int:
+    limbs = encoding.n_limbs(l_max)        # raises for l_max > 14
+    if l_max < 1 or delta < 1:
+        raise ValueError("delta and l_max must be >= 1")
+    return limbs
+
+
+def _launch(name: str, device, *args) -> None:
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _kernel(name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+
+
+def _ptr(x) -> int | None:
+    return None if x is None else x.data_ptr()
+
+
 def launch_kernel(u, v, t, valid, zone_id, lo, hi, *, delta: int,
-                  l_max: int, blk: int = FUSED_BLK_DEFAULT):
-    """Launch the CUDA kernel on CUDA tensors; raises on anything else."""
-    global launches
+                  l_max: int, blk: int = FUSED_BLK_DEFAULT,
+                  with_ts: bool = False):
+    """Launch the flat CUDA kernel on CUDA tensors; raises on anything
+    else.  Returns ``(code, length)``, plus ``ts`` with ``with_ts``."""
     if not u.is_cuda:
         raise ValueError("the fused zone-scan kernel needs CUDA tensors")
     ref.check_flat_inputs(u, v, t, valid, zone_id, lo, hi, blk=blk)
     _check_cuda_inputs(dict(u=u, v=v, t=t, valid=valid, zone_id=zone_id,
                             lo=lo, hi=hi), u.device)
-    limbs = encoding.n_limbs(l_max)        # raises for l_max > 14
-    if l_max < 1 or delta < 1:
-        raise ValueError("delta and l_max must be >= 1")
+    limbs = _check_params(delta, l_max)
     s_pad = u.shape[0]
     code = torch.empty((s_pad, limbs), dtype=torch.int32, device=u.device)
     length = torch.empty(s_pad, dtype=torch.int32, device=u.device)
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream(u.device).cuda_stream
-        err = _kernel()(
+    ts = (torch.empty((s_pad, l_max), dtype=torch.int32, device=u.device)
+          if with_ts else None)
+    _launch("fused_zone_scan_flat", u.device,
             u.data_ptr(), v.data_ptr(), t.data_ptr(), valid.data_ptr(),
             zone_id.data_ptr(), hi.data_ptr(), code.data_ptr(),
-            length.data_ptr(), s_pad, blk, int(delta), int(l_max), stream)
-    if err != 0:
-        raise RuntimeError(
-            f"fused_zone_scan_flat launch failed with CUDA error {err}")
-    launches += 1
-    return code, length
+            length.data_ptr(), _ptr(ts), s_pad, blk, int(delta), int(l_max),
+            int(with_ts))
+    launches["fused_zone_scan_flat_ts" if with_ts
+             else "fused_zone_scan_flat"] += 1
+    return (code, length, ts) if with_ts else (code, length)
 
 
 def scan_flat(u, v, t, valid, zone_id, lo, hi, *, delta: int, l_max: int,
-              blk: int = FUSED_BLK_DEFAULT):
+              blk: int = FUSED_BLK_DEFAULT, with_ts: bool = False):
     """Single-launch fused scan over a concatenated flat slot stream.
 
     Args:
       u, v, t, valid, zone_id: int32[S] flat slot streams (see
         :func:`repro_torch.core.tzp.concat_layout`), S a multiple of
         ``blk``; ``lo, hi``: int32[S // blk] per-block sweep windows.
+      with_ts: also return per-step absorption timestamps.
     Returns:
-      ``(code int32[S, L], length int32[S])`` per candidate slot, on the
-      inputs' device.  CUDA tensors go to the kernel, CPU tensors to its
-      plain version.
+      ``(code int32[S, L], length int32[S])`` per candidate slot, plus
+      ``ts int32[S, l_max]`` with ``with_ts``, on the inputs' device.
+      CUDA tensors go to the kernel, CPU tensors to its plain version.
     """
     if u.is_cuda:
         return launch_kernel(u, v, t, valid, zone_id, lo, hi, delta=delta,
-                             l_max=l_max, blk=blk)
+                             l_max=l_max, blk=blk, with_ts=with_ts)
     if u.device.type != "cpu":
         raise ValueError(f"unsupported device {u.device}")
     return ref.fused_zone_scan_torch(u, v, t, valid, zone_id, lo, hi,
-                                     delta=delta, l_max=l_max, blk=blk)
+                                     delta=delta, l_max=l_max, blk=blk,
+                                     with_ts=with_ts)
+
+
+def launch_zone_kernel(u, v, t, valid, *, delta: int, l_max: int,
+                       with_ts: bool = False) -> ZoneResult:
+    """Launch the dense CUDA kernel over a ``[Z, E]`` batch of CUDA
+    tensors; raises on anything else.  ``valid`` may be bool or int32
+    (bool is widened to the kernel's int32)."""
+    if not u.is_cuda:
+        raise ValueError("the dense zone-scan kernel needs CUDA tensors")
+    if u.dim() != 2:
+        raise ValueError(f"u has shape {tuple(u.shape)}, expected [Z, E]")
+    for name, x in (("v", v), ("t", t), ("valid", valid)):
+        if x.shape != u.shape:
+            raise ValueError(f"{name} has shape {tuple(x.shape)}, "
+                             f"expected {tuple(u.shape)}")
+    if valid.dtype == torch.bool:
+        valid = valid.to(torch.int32)
+    _check_cuda_inputs(dict(u=u, v=v, t=t, valid=valid), u.device)
+    limbs = _check_params(delta, l_max)
+    z, e = u.shape
+    dev = u.device
+    code = torch.empty((z, e, limbs), dtype=torch.int32, device=dev)
+    length = torch.empty((z, e), dtype=torch.int32, device=dev)
+    ts = (torch.empty((z, e, l_max), dtype=torch.int32, device=dev)
+          if with_ts else None)
+    _launch("zone_scan_dense", dev,
+            u.data_ptr(), v.data_ptr(), t.data_ptr(), valid.data_ptr(),
+            code.data_ptr(), length.data_ptr(), _ptr(ts), z, e, int(delta),
+            int(l_max), int(with_ts))
+    launches["zone_scan_dense_ts" if with_ts else "zone_scan_dense"] += 1
+    return ZoneResult(code=code, length=length, ts=ts)
+
+
+def scan_zones(u, v, t, valid, *, delta: int, l_max: int,
+               with_ts: bool = False) -> ZoneResult:
+    """Dense per-zone scan of a ``[Z, E]`` zone batch (the reference
+    signature of :func:`repro_torch.core.expansion.scan_zones`).
+
+    CUDA tensors go to the kernel, CPU tensors to its plain version.
+    """
+    if u.is_cuda:
+        return launch_zone_kernel(u, v, t, valid, delta=delta, l_max=l_max,
+                                  with_ts=with_ts)
+    if u.device.type != "cpu":
+        raise ValueError(f"unsupported device {u.device}")
+    return expansion.scan_zones(u, v, t, valid, delta=delta, l_max=l_max,
+                                with_ts=with_ts)

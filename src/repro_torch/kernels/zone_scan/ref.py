@@ -4,7 +4,8 @@ The counterpart of the JAX package's compiled lowering
 (``fused_zone_scan_xla``): same contract as the hand-written CUDA kernel in
 ``csrc/fused_zone_scan.cu`` — flat ``int32[S]`` slot streams plus
 per-block ``[lo, hi)`` descriptors in, ``(code int32[S, L], length
-int32[S])`` out — written as ordinary tensor ops so it runs on any device.
+int32[S])`` out, plus ``ts int32[S, l_max]`` absorption timestamps with
+``with_ts`` — written as ordinary tensor ops so it runs on any device.
 The CPU tests hold it against the JAX package; on the card it is the
 version each kernel launch is compared with.  It repeats the kernel's
 arithmetic and is no yardstick of speed.
@@ -53,17 +54,19 @@ _RETIRE_EVERY = 16
 
 
 def _edge_update(state, *, u, v, t, seed, gate, delta, l_max, iota_k,
-                 li_iota):
+                 li_iota, iota_l=None):
     """Apply one edge per lane to a block of lanes' expansion state.
 
     ``state`` is ``(length, last_t, done, n_nodes, nodes, code)``: int32
-    ``[C]`` vectors (``done`` bool), ``nodes [K, C]``, ``code [L, C]``.
+    ``[C]`` vectors (``done`` bool), ``nodes [K, C]``, ``code [L, C]``,
+    plus a trailing ``ts [l_max, C]`` block of absorption timestamps when
+    ``iota_l`` (the ``[l_max, 1]`` int32 step index) is given.
     ``u, v, t`` are this step's per-lane edge values ``[C]``; ``seed`` marks
     lanes seeded by this edge (already gated on its validity) and ``gate``
     the lanes this edge may extend or time out (validity and same zone).
     ``iota_k``/``li_iota`` are ``[K, 1]``/``[L, 1]`` int32 row indices.
     """
-    length, last_t, done, n_nodes, nodes, code = state
+    length, last_t, done, n_nodes, nodes, code = state[:6]
     k = iota_k.shape[0]
 
     active = (length > 0) & ~done
@@ -120,7 +123,14 @@ def _edge_update(state, *, u, v, t, seed, gate, delta, l_max, iota_k,
     seed_code = torch.where(li_iota == 0, seed_digit0 + seed_digit1, 0)
     code = torch.where(seed, seed_code, code)
 
-    return (new_length, new_last_t, done | timed_out, new_nn, nodes, code)
+    out = (new_length, new_last_t, done | timed_out, new_nn, nodes, code)
+    if iota_l is None:
+        return out
+    # the edge's time lands at step `length` (before the increment) on an
+    # extension, at step 0 on a seed
+    ts = torch.where(extend & (iota_l == length), t, state[6])
+    ts = torch.where(seed & (iota_l == 0), t, ts)
+    return out + (ts,)
 
 
 def check_flat_inputs(u, v, t, valid, zone_id, lo, hi, *, blk: int) -> int:
@@ -159,9 +169,10 @@ def lane_windows(zone_id, hi, *, blk: int) -> torch.Tensor:
 
 
 def _scan(u, v, t, valid, zone_id, lo, hi, *, delta, l_max, blk,
-          early_exit):
+          early_exit, with_ts=False):
     """The sweep behind :func:`fused_zone_scan_torch` and
-    :func:`live_steps`; returns ``(code, length, steps)``."""
+    :func:`live_steps`; returns ``(code, length, ts, steps)`` (``ts`` is
+    None without ``with_ts``)."""
     check_flat_inputs(u, v, t, valid, zone_id, lo, hi, blk=blk)
     s_pad = u.shape[0]
     dev = u.device
@@ -173,6 +184,8 @@ def _scan(u, v, t, valid, zone_id, lo, hi, *, delta, l_max, blk,
         s_pad, dtype=torch.int64, device=dev)
     code = torch.zeros((s_pad, limbs), dtype=torch.int32, device=dev)
     length = torch.zeros(s_pad, dtype=torch.int32, device=dev)
+    ts = (torch.zeros((s_pad, l_max), dtype=torch.int32, device=dev)
+          if with_ts else None)
     steps = torch.zeros((), dtype=torch.int64, device=dev)
 
     # only lanes that can seed (own slot valid, inside its window) sweep
@@ -196,11 +209,18 @@ def _scan(u, v, t, valid, zone_id, lo, hi, *, delta, l_max, blk,
     )
     iota_k = torch.arange(k, dtype=torch.int32, device=dev)[:, None]
     li_iota = torch.arange(limbs, dtype=torch.int32, device=dev)[:, None]
+    iota_l = None
+    if with_ts:
+        state += (torch.zeros((l_max, n), dtype=torch.int32, device=dev),)
+        iota_l = torch.arange(l_max, dtype=torch.int32, device=dev)[:, None]
 
     def flush(sel):
+        # a retired lane keeps the timestamps it had
         q = lanes[sel]
         length[q] = state[0][sel]
         code[q] = state[5][:, sel].T
+        if with_ts:
+            ts[q] = state[6][:, sel].T
 
     j = 0
     while j < trip:
@@ -227,25 +247,29 @@ def _scan(u, v, t, valid, zone_id, lo, hi, *, delta, l_max, blk,
             state, u=u_p[idx], v=v_p[idx], t=t_p[idx],
             seed=evalid if j == 0 else torch.zeros_like(evalid),
             gate=evalid & (zid_p[idx] == l_zid),
-            delta=delta, l_max=l_max, iota_k=iota_k, li_iota=li_iota)
+            delta=delta, l_max=l_max, iota_k=iota_k, li_iota=li_iota,
+            iota_l=iota_l)
         j += 1
     flush(torch.ones(lanes.numel(), dtype=torch.bool, device=dev))
-    return code, length, steps
+    return code, length, ts, steps
 
 
 def fused_zone_scan_torch(u, v, t, valid, zone_id, lo, hi, *, delta: int,
                           l_max: int, blk: int = 512,
-                          early_exit: bool = True):
+                          early_exit: bool = True, with_ts: bool = False):
     """Single-launch ragged zone scan over a concatenated flat slot stream.
 
     Args and returns are those of the CUDA kernel's wrapper
     (:func:`repro_torch.kernels.zone_scan.ops.scan_flat`): flat
     ``int32[S]`` slot streams plus per-block ``[lo, hi)`` descriptors in,
-    ``(code int32[S, L], length int32[S])`` out, on the inputs' device.
+    ``(code int32[S, L], length int32[S])`` out, plus ``ts int32[S,
+    l_max]`` absorption timestamps with ``with_ts``, on the inputs'
+    device.
     """
-    code, length, _ = _scan(u, v, t, valid, zone_id, lo, hi, delta=delta,
-                            l_max=l_max, blk=blk, early_exit=early_exit)
-    return code, length
+    code, length, ts, _ = _scan(u, v, t, valid, zone_id, lo, hi,
+                                delta=delta, l_max=l_max, blk=blk,
+                                early_exit=early_exit, with_ts=with_ts)
+    return (code, length, ts) if with_ts else (code, length)
 
 
 def live_steps(u, v, t, valid, zone_id, lo, hi, *, delta: int, l_max: int,
@@ -253,6 +277,6 @@ def live_steps(u, v, t, valid, zone_id, lo, hi, *, delta: int, l_max: int,
     """Slots visited by the early-exit sweep, summed over lanes: the
     per-lane steps these inputs need (one kernel thread per lane visits
     exactly these)."""
-    _, _, steps = _scan(u, v, t, valid, zone_id, lo, hi, delta=delta,
-                        l_max=l_max, blk=blk, early_exit=True)
+    *_, steps = _scan(u, v, t, valid, zone_id, lo, hi, delta=delta,
+                      l_max=l_max, blk=blk, early_exit=True)
     return int(steps)

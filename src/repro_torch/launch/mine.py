@@ -12,10 +12,9 @@ add_cli_args` and parsed back into the validated config the engine is
 built from.  ``--device`` (default ``cuda``) picks where the run's tensors
 live.
 
-``--check-sequential`` builds its baseline with a second engine on
-``backend="ref"`` on the same device (and says so): the accelerator
-backend's per-zone scan, which the sequential baseline needs, is not
-ported yet (ROADMAP slice 2).  ``--stream`` is ROADMAP slice 4 and raises.
+``--check-sequential`` runs the sequential baseline on the same engine,
+so on its own backend (``cuda``: one launch of the dense kernel over the
+whole stream).  ``--stream`` is ROADMAP slice 4 and raises.
 
 ``--out-json FILE`` writes the end-of-run summary.
 """
@@ -108,19 +107,12 @@ def main(argv=None):
     _print_result(res, dt, "PTMT")
 
     if args.check_sequential:
-        base = engine
-        if config.backend != "ref":
-            print(f"\nsequential baseline on backend 'ref' (the "
-                  f"{config.backend!r} backend's per-zone scan is ROADMAP "
-                  f"slice 2)")
-            base = PTMTEngine(config.with_updates(backend="ref"),
-                              device=args.device, obs=obs)
         t0 = time.perf_counter()
-        seq = base.sequential(graph)
+        seq = engine.sequential(graph)
         dt_seq = time.perf_counter() - t0
         match = seq.counts == res.counts
-        print(f"\nsequential TMC-analog: {dt_seq:.2f}s, "
-              f"exact match: {match}")
+        print(f"\nsequential TMC-analog (backend {engine.backend!r}): "
+              f"{dt_seq:.2f}s, exact match: {match}")
         if not match:
             raise SystemExit("MISMATCH between PTMT and sequential baseline")
 

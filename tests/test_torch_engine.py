@@ -3,6 +3,7 @@
 kernel's plain version on the CPU and must give the counts the JAX
 package's ``discover`` gives with ``backend="pallas"`` (exact)."""
 
+import functools
 import os
 import subprocess
 import sys
@@ -12,7 +13,9 @@ import pytest
 import torch
 
 from repro.core import MiningConfig as JaxConfig
+from repro.core import MiningExecutor as JaxExecutor
 from repro.core import PTMTEngine as JaxEngine
+from repro.core import transitions as j_transitions
 from repro.data import synthetic_graphs as j_graphs
 from repro_torch.core import MiningConfig, MiningExecutor, PTMTEngine
 from repro_torch.core import executor as t_executor
@@ -122,25 +125,146 @@ def test_engine_without_device_raises_without_cuda(monkeypatch):
     assert PTMTEngine(device="cpu").device == torch.device("cpu")
 
 
-def test_paths_of_later_slices_raise():
-    g = powerlaw_bursty(5)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        PTMTEngine(MiningConfig(delta=12, l_max=3, omega=2),
-                   device="cpu").discover(g)          # ref: per-bucket
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        PTMTEngine(MiningConfig(backend="cuda", delta=12, l_max=3,
-                                omega=2), device="cpu").sequential(g)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        PTMTEngine(MiningConfig(backend="cuda", fused="off", delta=12,
-                                l_max=3, omega=2), device="cpu").discover(g)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        PTMTEngine(MiningConfig(delta=12, l_max=3, omega=2,
-                                memory_budget_mb=1.0),
-                   device="cpu").sequential(g)         # budget-derived chunk
-    ex = MiningExecutor(delta=12, l_max=3, agg="hierarchical", device="cpu")
+def _slice2_call(which, g):
+    """The five calls that raised before the per-bucket path was ported,
+    each run in both packages: ``(port result, JAX result)``."""
+    cfg = dict(delta=12, l_max=3, omega=2)
+    if which == "default-ref-discover":        # ref: the per-bucket path
+        return (PTMTEngine(MiningConfig(**cfg), device="cpu").discover(g),
+                JaxEngine(JaxConfig(**cfg)).discover(g))
+    if which == "cuda-sequential":
+        return (PTMTEngine(MiningConfig(backend="cuda", **cfg),
+                           device="cpu").sequential(g),
+                JaxEngine(JaxConfig(backend="pallas", **cfg)).sequential(g))
+    if which == "cuda-fused-off-discover":
+        return (PTMTEngine(MiningConfig(backend="cuda", fused="off", **cfg),
+                           device="cpu").discover(g),
+                JaxEngine(JaxConfig(backend="pallas", fused="off",
+                                    **cfg)).discover(g))
+    if which == "budget-sequential":           # budget-derived zone chunk
+        return (PTMTEngine(MiningConfig(memory_budget_mb=1.0, **cfg),
+                           device="cpu").sequential(g),
+                JaxEngine(JaxConfig(memory_budget_mb=1.0,
+                                    **cfg)).sequential(g))
     batch = tzp.build_zone_batch(g, tzp.single_zone_plan(g, l_b=36))
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        ex.run(batch)
+    t = MiningExecutor(delta=12, l_max=3, agg="hierarchical",
+                       device="cpu").run(batch)
+    j = JaxExecutor(delta=12, l_max=3, agg="hierarchical").run(batch)
+    return t, j
+
+
+@pytest.mark.parametrize("which", [
+    "default-ref-discover", "cuda-sequential", "cuda-fused-off-discover",
+    "budget-sequential", "hierarchical-executor-run"])
+def test_slice2_paths_equal_jax(which):
+    """The per-bucket path, the sequential baseline on cuda, budget-derived
+    chunks and the bounded fold, against the JAX package."""
+    t, j = _slice2_call(which, powerlaw_bursty(5))
+    if which == "hierarchical-executor-run":
+        assert transitions.device_counts_to_dict(t) == \
+            j_transitions.device_counts_to_dict(j)
+        return
+    assert t.counts == j.counts
+    assert (t.n_zones, t.e_cap, t.overflow) == (j.n_zones, j.e_cap,
+                                                j.overflow)
+    if "execution" in j.layout:
+        assert t.layout["execution"] == j.layout["execution"]
+
+
+def test_stream_still_raises_naming_its_slice():
+    """Streaming is the one path of the CLI that is still unported."""
+    from repro_torch.launch import mine
+
+    with pytest.raises(SystemExit, match="slice 4"):
+        mine.main(["--device", "cpu", "--stream"])
+
+
+#: per-bucket runs of every port backend in every agg mode, each held
+#: against the JAX package's ``ref`` backend in the same mode
+_AGG = {
+    "legacy": dict(agg="legacy"),
+    "hierarchical": dict(agg="hierarchical", zone_chunk=2),
+    "pipelined": dict(agg="pipelined", zone_chunk=2),
+    "budget": dict(memory_budget_mb=0.05),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_per_bucket(mode):
+    cfg = JaxConfig(delta=30, l_max=4, omega=2, fused="off", **_AGG[mode])
+    return JaxEngine(cfg).discover(powerlaw_bursty(5))
+
+
+@pytest.mark.parametrize("mode", list(_AGG))
+@pytest.mark.parametrize("backend", ["ref", "torch", "numpy", "cuda"])
+def test_per_bucket_discover_equals_jax(backend, mode):
+    g = powerlaw_bursty(5)
+    eng = PTMTEngine(MiningConfig(delta=30, l_max=4, omega=2, fused="off",
+                                  backend=backend, **_AGG[mode]),
+                     device="cpu")
+    t = eng.discover(g)
+    j = _jax_per_bucket(mode)
+    assert t.counts == j.counts
+    assert t.layout == j.layout
+    assert t.layout["execution"]["path"] == "per-bucket"
+    assert eng.stats.launches == len(t.layout["buckets"])
+
+
+def test_tiny_merge_cap_spills_and_retries_like_jax():
+    """Per-bucket hierarchical folds at merge_cap=8: the same spill
+    warnings, in the same number, and the same exact counts."""
+    g = powerlaw_bursty(5)
+    cfg = dict(delta=30, l_max=7, omega=2, zone_chunk=2, merge_cap=8,
+               fused="off")
+    with warnings.catch_warnings(record=True) as t_warn:
+        warnings.simplefilter("always")
+        t = PTMTEngine(MiningConfig(**cfg), device="cpu").discover(g)
+    with warnings.catch_warnings(record=True) as j_warn:
+        warnings.simplefilter("always")
+        j = JaxEngine(JaxConfig(**cfg)).discover(g)
+    spills = lambda ws: [str(w.message) for w in ws
+                         if "spilled" in str(w.message)]
+    assert spills(t_warn) == spills(j_warn) != []
+    assert t.counts == j.counts
+
+
+def test_execution_keys_match_jax():
+    g = powerlaw_bursty(5)
+    cfg = dict(delta=30, l_max=4, omega=2, memory_budget_mb=0.05)
+    t = PTMTEngine(MiningConfig(**cfg), device="cpu")
+    j = JaxEngine(JaxConfig(**cfg))
+    layout = tzp.build_zone_layout(g, tzp.plan_zones(g, delta=30, l_max=4,
+                                                     omega=2))
+    t_keys = t.executor.layout_execution_keys(layout)
+    j_keys = j.executor.layout_execution_keys(layout)
+    assert t_keys == j_keys and len(t_keys) == layout.n_buckets
+    for b in layout.buckets:
+        assert t.capacity_plan(b.n_zones, b.e_cap).__dict__ == \
+            j.capacity_plan(b.n_zones, b.e_cap).__dict__
+
+
+def test_scan_aggregate_partial_reports_spills():
+    """The one-pass cores: exact at a wide cap, a positive spill count at
+    a tiny one (the caller re-runs), legacy with no spill."""
+    g = powerlaw_bursty(5)
+    batch = tzp.build_zone_batch(g, tzp.plan_zones(g, delta=30, l_max=4,
+                                                   omega=2))
+    assert batch.n_zones % 3 == 0
+    arrays = [torch.as_tensor(x) for x in (batch.u, batch.v, batch.t,
+                                           batch.valid, batch.sign)]
+    as_dict = transitions.device_counts_to_dict
+    whole = MiningExecutor(delta=30, l_max=4, device="cpu").scan_aggregate(
+        *arrays)
+    for cap, spills in ((None, False), (8, True)):
+        ex = MiningExecutor(delta=30, l_max=4, zone_chunk=3, merge_cap=cap,
+                            agg="hierarchical", device="cpu")
+        counts, spilled = ex.scan_aggregate_partial(*arrays)
+        assert bool(spilled) == spills
+        if not spills:
+            assert as_dict(counts) == as_dict(whole)
+    with pytest.raises(ValueError, match="host-only"):
+        MiningExecutor(delta=30, l_max=4, backend="numpy",
+                       device="cpu").scan_aggregate(*arrays)
 
 
 def test_zone_chunked_legacy_batch_equals_unchunked():
@@ -172,7 +296,7 @@ def test_mine_cli_check_sequential_on_cpu():
                 "collegemsg-like", "--delta", "900", "--l-max", "3",
                 "--omega", "6", "--check-sequential")
     assert out.returncode == 0, out.stderr
-    assert "sequential baseline on backend 'ref'" in out.stdout
+    assert "sequential TMC-analog (backend 'cuda')" in out.stdout
     assert "exact match: True" in out.stdout
 
 

@@ -161,8 +161,12 @@ def test_config_from_json_maps_registry_names():
     assert (t.backend, t.fused_backend, t.delta) == ("cuda", "torch", 60)
     with pytest.raises(ValueError, match="unknown backend 'pallas'"):
         MiningConfig.from_json(j.to_json())
-    bad = json.loads(JaxConfig(backend="numpy").to_json())
-    with pytest.raises(ValueError, match="unknown backend 'numpy'"):
+    # every JAX registry name has a counterpart: numpy carries over as is
+    t = convert.config_from_json(JaxConfig(backend="numpy").to_json())
+    assert t.backend == "numpy"
+    bad = json.loads(JaxConfig().to_json())
+    bad["backend"] = "tpu"
+    with pytest.raises(ValueError, match="unknown backend 'tpu'"):
         convert.config_from_json(bad)
 
 
