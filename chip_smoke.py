@@ -27,13 +27,39 @@ launch, and checks them:
    launch) and on the per-bucket path (one per bucket);
 7. the main path (fused ``discover``) on the full-size graph: one warm-up,
    a traced run for the time breakdown, then three timed runs;
-8. one JSON line naming every kernel with its launches, error and times;
-9. last line: ``{"ok": true, "device": {...}}``.
+8. the model zoo's kernels against their plain versions on the card: the
+   segment scatter-sum (B4) on the JAX tests' shapes in f32 and bf16,
+   with a mask, out-of-range ids and a hot segment; the embedding bag
+   (B5) on the JAX tests' shapes in f32 and bf16 and with ids outside the
+   table; each timed beside its plain version and one PyTorch library
+   call (``index_add_``, ``F.embedding_bag``) that is used nowhere else;
+9. GNN inference at full width: ``gin-tu``, ``gat-cora`` and ``gatedgcn``
+   at their CONFIG widths on ``minibatch_lg`` (169,984 nodes, 168,960
+   edges, 602 features, 41 classes; ``random_graph_batch(seed=0)``),
+   each forward held against the same forward on the CPU, B4 held
+   against its plain version on each model's first real aggregation
+   input, timed (ms per forward, edges/s) with 5, 2 and 32 B4 launches
+   per forward; then ``gin-tu`` on ``ogb_products`` (2,449,029 nodes,
+   61,859,328 padded edges): B4 on the first layer's aggregation against
+   its plain version, timed alone and with its wrapper's sort, and one
+   forward with its peak device memory;
+10. DCN-v2 serving at full width (26 tables, 22,875,000 rows x 16, a
+    4M x 64 item table, seeded init on the card): ``serve_p99`` (512
+    examples) held against the CPU forward, B5 held against its plain
+    version on every field at ``serve_bulk`` (262,144 examples, bag 4),
+    ``serve_bulk`` timed (ms per forward, examples/s), and
+    ``retrieval_cand`` (1 query, 1,000,000 candidates, top 100) held
+    against the CPU; 26 B5 launches per forward;
+11. one JSON line naming every kernel with its launches, error and times;
+12. last line: ``{"ok": true, "device": {...}}``.
 
-Every path of phases 5-7 runs with the kernels' launch counts set to 0
-just before it and read just after; a kernel its path should launch but
-did not fails the run.  It exits non-zero, with no result line, when any
-phase fails or when PyTorch sees no CUDA device.
+Every path of phases 5-7, 9 and 10 runs with the kernels' launch counts
+set to 0 just before it and read just after; a kernel its path should
+launch but did not (or, where a count is set, launched another number of
+times) fails the run.  Matmuls run in full float32: TF32 is switched off
+for cuBLAS and cuDNN before anything runs.  The script exits non-zero,
+with no result line, when any phase fails or when PyTorch sees no CUDA
+device.
 """
 
 from __future__ import annotations
@@ -41,6 +67,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -71,6 +98,30 @@ TPU = "src/repro/kernels/zone_scan/zone_scan.py"
 VARIANT_FLAT = {False: "fused_zone_scan_flat",
                 True: "fused_zone_scan_flat_ts"}
 VARIANT_DENSE = {False: "zone_scan_dense", True: "zone_scan_dense_ts"}
+
+# An H100 SXM's published peaks at its 700 W limit (NVIDIA's data sheet):
+# the HBM3 rate every byte bound divides by, and the float32 rate outside
+# the tensor cores (model zoo, phases 8-10)
+HBM_RATE = 3.35e12
+FP32_RATE = 67e12
+SPMM_SRC = "src/repro_torch/kernels/segment_spmm/csrc/segment_spmm.cu"
+SPMM_TPU = "src/repro/kernels/segment_spmm/segment_spmm.py:57"
+BAG_SRC = "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu"
+BAG_TPU = "src/repro/kernels/embedding_bag/embedding_bag.py:38"
+# (E, N, D) and (V, D, B, K) of the JAX package's kernel tests
+SPMM_SHAPES = ((100, 40, 8), (1000, 128, 64), (513, 300, 70), (2048, 64, 128))
+BAG_SHAPES = ((1000, 16, 64, 4), (5000, 64, 100, 1), (300, 128, 257, 8))
+# (rtol, atol) of the JAX kernel tests, against an fp32 plain version: the
+# rows are summed in another order (and multiplied-added in one rounding);
+# bf16 also rounds the inputs and each stored sum
+TOL_SPMM = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 0.15)}
+TOL_BAG = {"float32": (1e-5, 1e-5), "bfloat16": (5e-2, 5e-2)}
+# GNN archs at their CONFIG widths and their B4 launches per forward
+GNN_MODELS = (("gin-tu", 5), ("gat-cora", 2), ("gatedgcn", 32))
+# a card forward against the CPU forward: rtol, and an atol of this times
+# the output's largest magnitude (matmuls and sums run in another order)
+GNN_TOL, DCN_TOL = 1e-4, 1e-5
+TOP_K = 100
 
 
 def log(msg: str) -> None:
@@ -152,30 +203,54 @@ def copy_bandwidth() -> float:
     return 2 * 4 * n / (ms * 1e-3)
 
 
+def demangle(names) -> dict:
+    """Readable kernel names, by the toolkit's ``cu++filt`` (else
+    ``c++filt``, else as they are)."""
+    from repro_torch.kernels import _build
+
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cu++filt")
+    if not os.path.exists(tool):
+        tool = shutil.which("c++filt")
+    if tool is None or not names:
+        return {n: n for n in names}
+    out = subprocess.run([tool], input="\n".join(names), check=True,
+                         capture_output=True, text=True, timeout=60)
+    return dict(zip(names, out.stdout.splitlines()))
+
+
 def report_registers(logs: dict) -> None:
-    """Registers of each kernel instantiation by ``l_max``, from ``ptxas
-    -v``, and whether any instantiation spills."""
-    spills = []
+    """Registers of every entry function, from ``ptxas -v``: the zone-scan
+    instantiations by ``l_max`` and variant, every other kernel by name;
+    and whether any entry function spills."""
+    spills, others = [], []
+    by_lmax: dict[str, list] = {}
     for src, text in logs.items():
-        rows = []
         # one block per entry function, whatever order ptxas reports in
         for block in text.split("Compiling entry function '")[1:]:
             name = block.split("'", 1)[0]
-            inst = re.search(r"ILi(\d+)ELb([01])E", name)
             regs = re.search(r"Used (\d+) registers", block)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
                               r"spill loads", block)
-            if not (inst and regs and spill):
+            if not (regs and spill):
                 log(f"[build] {src}: no register report read for {name}")
                 continue
-            rows.append((int(inst.group(1)), int(inst.group(2)),
-                         int(regs.group(1))))
             if int(spill.group(1)) or int(spill.group(2)):
                 spills.append(name)
+            inst = re.search(r"ILi(\d+)ELb([01])E", name)
+            if inst:        # the zone-scan template <l_max, with_ts>
+                by_lmax.setdefault(src, []).append(
+                    (int(inst.group(1)), int(inst.group(2)),
+                     int(regs.group(1))))
+            else:
+                others.append((src, name, int(regs.group(1))))
+    for src, rows in by_lmax.items():
         rows.sort()
         for ts in (0, 1):
             log(f"[build] {src} with_ts={ts}: registers by l_max "
                 + ", ".join(f"{lm}:{r}" for lm, t, r in rows if t == ts))
+    names = demangle([name for _, name, _ in others])
+    for src, name, r in others:
+        log(f"[build] {src} {names[name]}: {r} registers")
     log(f"[build] spills: {spills if spills else 'none'}")
 
 
@@ -244,20 +319,63 @@ def dense_live_steps(args, *, delta, l_max) -> int:
         delta=delta, l_max=l_max, blk=e)
 
 
+def kernel_ops():
+    """The wrapper module of every kernel source, each with its launch
+    counts."""
+    from repro_torch.kernels.embedding_bag import ops as bag_ops
+    from repro_torch.kernels.segment_spmm import ops as spmm_ops
+    from repro_torch.kernels.zone_scan import ops as scan_ops
+
+    return scan_ops, spmm_ops, bag_ops
+
+
+def profiled(tag, label, fn, top_n: int = 6) -> None:
+    """One call of ``fn`` under ``torch.profiler``: its wall time, the
+    device's busy and idle shares, and the kernels that took the most
+    device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device activities only (kernels, memsets, copies); the operators
+    # that launched them carry the same time again as their children
+    by_name: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms = e.time_range.elapsed_us() / 1e3
+            by_name[e.name] = by_name.get(e.name, 0.0) + ms
+    busy_ms = sum(by_name.values())
+    if busy_ms > 0:
+        top = sorted(by_name.items(), key=lambda r: -r[1])[:top_n]
+        log(f"[{tag}] profiled {label}: wall {wall_ms:.3f} ms, device "
+            f"busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}), idle "
+            f"{1 - busy_ms / wall_ms:.1%}; top device time: " + "; ".join(
+                f"{k[:60]} {ms:.3f} ms" for k, ms in top))
+    else:
+        log(f"[{tag}] profiler recorded no device time for {label}: busy "
+            "share not measured")
+
+
 def run_counted(label, fn, expect):
     """Run one path with every launch count at 0 before and read after;
     fails when a kernel in ``expect`` ran no launch (or, where ``expect``
     gives a number, another number of launches)."""
     import torch
-    from repro_torch.kernels.zone_scan import ops
 
-    ops.reset_launches()
+    modules = kernel_ops()
+    for ops in modules:
+        ops.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = fn()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = dict(ops.launches)
+    counts = {k: v for ops in modules for k, v in ops.launches.items()}
     for name, n in expect.items():
         if counts[name] == 0 or (n is not None and counts[name] != n):
             raise SystemExit(f"{label}: {name} launched {counts[name]} "
@@ -265,6 +383,452 @@ def run_counted(label, fn, expect):
     log(f"[{label}] {dt:.3f}s, launches "
         + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
     return res, dt, counts
+
+
+# -- model zoo (phases 8-10) ---------------------------------------------
+
+def hold(label, got, want, rtol, atol) -> float:
+    """Fails unless ``got`` equals ``want`` within ``atol + rtol * |want|``
+    elementwise (NaN where both are NaN); returns the largest absolute
+    error."""
+    got, want = got.float(), want.float()
+    if got.shape != want.shape:
+        raise SystemExit(f"{label}: shape {tuple(got.shape)} != "
+                         f"{tuple(want.shape)}")
+    same = (got == want) | (got.isnan() & want.isnan())
+    diff = (got - want).abs()
+    ok = same | (diff <= atol + rtol * want.abs())
+    err = float(diff[~same].max()) if bool((~same).any()) else 0.0
+    if not bool(ok.all()):
+        raise SystemExit(f"{label}: outside its tolerance, max abs err "
+                         f"{err} (rtol {rtol}, atol {atol})")
+    return err
+
+
+def scaled_tol(want, tol):
+    """(rtol, atol) for a whole forward: atol scales with the output."""
+    return tol, tol * max(1.0, float(want.abs().max()))
+
+
+def tree_to(tree, device):
+    return {k: tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def timed_runs_of(fn, runs: int = TIMED_RUNS):
+    """``(last output, [seconds per run])`` of ``runs`` synced calls."""
+    import torch
+
+    out, times = None, []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return out, times
+
+
+def record_calls(owner, name: str, run) -> list:
+    """The arguments of every call to ``owner.<name>`` while ``run()``
+    runs (the attribute is restored after)."""
+    calls, orig = [], getattr(owner, name)
+
+    def tap(*args, **kwargs):
+        calls.append(args)
+        return orig(*args, **kwargs)
+
+    setattr(owner, name, tap)
+    try:
+        run()
+    finally:
+        setattr(owner, name, orig)
+    return calls
+
+
+def check_spmm_shapes() -> float:
+    """B4 against its plain version on the JAX tests' cases; returns the
+    largest f32 error."""
+    import torch
+    from repro_torch.kernels.segment_spmm import ops, ref
+
+    cases = [(f"E,N,D={e},{n},{d}", e, n, d, seed, None, None)
+             for seed, (e, n, d) in ((e + n + d, (e, n, d))
+                                     for e, n, d in SPMM_SHAPES)]
+    cases += [("mask", 500, 100, 32, 7, "mask", None),
+              ("ids out of range, a NaN row", 600, 50, 24, 12, "range",
+               None),
+              # ~640 rows summed into one segment: the JAX test's 1e-4 (f32)
+              ("hot segment", 800, 256, 16, 9, "hot", (1e-4, 1e-4))]
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    for label, e, n, d, seed, kind, tol in cases:
+        rng = np.random.default_rng(seed)
+        values = rng.standard_normal((e, d)).astype(np.float32)
+        seg = rng.integers(0, n, e)
+        mask = None
+        if kind == "mask":
+            mask = torch.as_tensor(rng.random(e) < 0.7, device=DEVICE)
+        elif kind == "range":
+            seg = rng.integers(-60, n + 60, e)
+            values[5] = np.nan
+        elif kind == "hot":
+            seg = np.where(rng.random(e) < 0.8, 3, seg)
+        seg = torch.as_tensor(seg.astype(np.int32), device=DEVICE)
+        for dt in errs:
+            v = torch.as_tensor(values, device=DEVICE).to(getattr(torch, dt))
+            got = ops.scatter_sum(v, seg, n, mask)
+            torch.cuda.synchronize()
+            want = ref.scatter_sum(v.float(), seg, n, mask)
+            rtol, atol = tol if tol and dt == "float32" else TOL_SPMM[dt]
+            err = hold(f"segment_spmm {label} {dt}", got, want, rtol, atol)
+            errs[dt] = max(errs[dt], err)
+    log(f"[kernel-vs-plain] segment_spmm on {len(cases)} cases x f32/bf16: "
+        f"max abs err f32 {errs['float32']}, bf16 {errs['bfloat16']} "
+        f"(tolerances {TOL_SPMM})")
+    return errs["float32"]
+
+
+def check_bag_shapes() -> float:
+    """B5 against its plain version on the JAX tests' cases; returns the
+    largest f32 error."""
+    import torch
+    from repro_torch.kernels.embedding_bag import ops, ref
+
+    cases = [(f"V,D,B,K={v},{d},{b},{k}", v, d, b, k, v + b, False)
+             for v, d, b, k in BAG_SHAPES]
+    cases.append(("ids outside the table", 50, 8, 40, 3, 21, True))
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    for label, v, d, b, k, seed, outside in cases:
+        rng = np.random.default_rng(seed)
+        table = rng.standard_normal((v, d)).astype(np.float32)
+        lo, hi = (-2 * v, 2 * v) if outside else (0, v)
+        ids = torch.as_tensor(rng.integers(lo, hi, (b, k)).astype(np.int32),
+                              device=DEVICE)
+        w = torch.as_tensor(rng.standard_normal((b, k)).astype(np.float32),
+                            device=DEVICE)
+        for dt in errs:
+            t = torch.as_tensor(table, device=DEVICE).to(getattr(torch, dt))
+            got = ops.embedding_bag(t, ids, w)
+            torch.cuda.synchronize()
+            want = ref.embedding_bag(t.float(), ids, w)
+            err = hold(f"embedding_bag {label} {dt}", got, want,
+                       *TOL_BAG[dt])
+            errs[dt] = max(errs[dt], err)
+    table = torch.eye(8, 4, device=DEVICE)
+    dup = ops.embedding_bag(table, torch.tensor(
+        [[2, 2, 2, 0]], dtype=torch.int32, device=DEVICE), torch.tensor(
+        [[1.0, 2.0, 3.0, 10.0]], device=DEVICE))
+    if dup[0].tolist() != [10.0, 0.0, 6.0, 0.0]:
+        raise SystemExit(f"embedding_bag: duplicate ids gave {dup.tolist()}")
+    log(f"[kernel-vs-plain] embedding_bag on {len(cases)} cases x f32/bf16 "
+        f"and duplicate ids: max abs err f32 {errs['float32']}, bf16 "
+        f"{errs['bfloat16']} (tolerances {TOL_BAG})")
+    return errs["float32"]
+
+
+def time_spmm(label, values, ids, n, mask, bound, reps):
+    """B4 alone on the wrapper's sorted rows, the wrapper (sort and
+    kernel), the plain version and ``index_add_``: ``(ms, plain_ms,
+    bound_ms, bound_by, library_ms)``."""
+    import torch
+    from repro_torch.kernels.segment_spmm import ops, ref
+
+    sorted_ids, order = ops.sort_rows(ids, n, mask)
+    d = values.shape[1]
+    fns = {
+        "kernel": lambda: ops.launch_kernel(values, sorted_ids, order, n),
+        "wrapper": lambda: ops.scatter_sum(values, ids, n, mask),
+        "plain": lambda: ref.scatter_sum(values, ids, n, mask),
+        "index_add_": lambda: torch.zeros(
+            (n, d), dtype=values.dtype, device=DEVICE).index_add_(
+                0, ids, values),
+    }
+    ms = {}
+    for name, fn in fns.items():
+        fn()
+        ms[name] = cuda_ms(fn, reps)
+    kept = int((sorted_ids < n).sum())
+    size = values.element_size()
+    n_bytes = (values.numel() * size + ids.numel() * 4 + n * d * size
+               + (mask.numel() if mask is not None else 0))
+    b_ms, by = bound(label, n_bytes, kept * d, ms["kernel"], rate=FP32_RATE,
+                     unit="fp32")
+    log(f"[gnn] {label}: kernel {ms['kernel']:.4f} ms, wrapper (sort + "
+        f"kernel) {ms['wrapper']:.4f} ms, plain {ms['plain']:.4f} ms, "
+        f"index_add_ {ms['index_add_']:.4f} ms (means of {reps})")
+    return ms["kernel"], ms["plain"], b_ms, by, ms["index_add_"]
+
+
+def gnn_minibatch(bound):
+    """The three GNN archs at full width on ``minibatch_lg``; returns B4's
+    launches in the counted runs, its largest error on the layers' real
+    inputs and its timing on gin-tu's first aggregation."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs.gnn_common import _specialize
+    from repro_torch.data.graph_data import random_graph_batch
+    from repro_torch.kernels.segment_spmm import ops, ref
+    from repro_torch.models import gnn
+    from repro_torch.models.params import tree_init
+
+    shape = configs.get_arch("gin-tu").shape("minibatch_lg")
+    t0 = time.perf_counter()
+    g_cpu = random_graph_batch(
+        n_nodes=shape.n_nodes, n_edges=shape.n_edges, d_feat=shape.d_feat,
+        n_classes=shape.n_classes, seed=0, device="cpu")
+    g = tree_to(g_cpu, DEVICE)
+    log(f"[gnn] minibatch_lg: {shape.n_nodes} nodes, {shape.n_edges} edges, "
+        f"d_feat {shape.d_feat}, {shape.n_classes} classes, made in "
+        f"{time.perf_counter() - t0:.1f}s")
+    launches, err, timing = 0, 0.0, None
+    for seed, (name, per_forward) in enumerate(GNN_MODELS):
+        cfg = _specialize(configs.get_arch(name).config, shape)
+        p = tree_init(gnn.gnn_param_specs(cfg), generator=torch.Generator(
+            device=DEVICE).manual_seed(seed), device=DEVICE)
+        # B4 on the first aggregation input of each width, recorded on a
+        # warm-up forward
+        firsts = {}
+        for args in record_calls(ops, "scatter_sum",
+                                 lambda: gnn.forward(p, g, cfg)):
+            firsts.setdefault(args[0].shape[1], args)
+        for d, args in firsts.items():
+            got = ops.scatter_sum(*args)
+            torch.cuda.synchronize()
+            e = hold(f"segment_spmm {name} layer input D={d}", got,
+                     ref.scatter_sum(*args), *TOL_SPMM["float32"])
+            err = max(err, e)
+            log(f"[gnn] {name}: B4 on the first aggregation input "
+                f"[{args[0].shape[0]}, {d}] == plain, max abs err {e}")
+        want = gnn.forward(tree_to(p, "cpu"), g_cpu, cfg)
+        (out, times), _, counts = run_counted(
+            f"{name} minibatch_lg x{TIMED_RUNS}",
+            lambda: timed_runs_of(lambda: gnn.forward(p, g, cfg)),
+            {"segment_spmm": per_forward * TIMED_RUNS})
+        launches += counts["segment_spmm"]
+        e = hold(f"{name} forward on the card vs the CPU", out.cpu(), want,
+                 *scaled_tol(want, GNN_TOL))
+        log(f"[gnn] {name} ({cfg.n_layers} layers, d_hidden "
+            f"{cfg.d_hidden}): forward == CPU forward (max abs err {e}, "
+            f"|logits| <= {float(want.abs().max()):.3f}); ms per forward "
+            + ", ".join(f"{t * 1e3:.3f}" for t in times) + f"; edges/s "
+            f"best {shape.n_edges / min(times):.0f}; "
+            f"{per_forward} B4 launches per forward")
+        profiled("gnn", f"{name} minibatch_lg forward",
+                 lambda: gnn.forward(p, g, cfg))
+        if name == "gin-tu":
+            timing = time_spmm("segment_spmm gin-tu minibatch_lg layer 1",
+                               *firsts[cfg.d_hidden], bound, KERNEL_REPS)
+        del p, firsts, out, want
+    return launches, err, timing
+
+
+def gnn_ogb_products(bound):
+    """gin-tu at full width on ``ogb_products``: B4 on the first layer's
+    aggregation against its plain version, then one counted forward with
+    its peak device memory.  Returns B4's launches and error."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import configs
+    from repro_torch.configs.gnn_common import _specialize, padded_sizes
+    from repro_torch.data.graph_data import random_graph_batch
+    from repro_torch.kernels.segment_spmm import ops, ref
+    from repro_torch.models import gnn
+    from repro_torch.models.params import tree_init
+
+    arch = configs.get_arch("gin-tu")
+    shape = arch.shape("ogb_products")
+    n_pad, e_pad = padded_sizes(shape)
+    t0 = time.perf_counter()
+    g = random_graph_batch(
+        n_nodes=shape.n_nodes, n_edges=shape.n_edges, d_feat=shape.d_feat,
+        n_classes=shape.n_classes, seed=0, pad_nodes=n_pad, pad_edges=e_pad,
+        device=DEVICE)
+    log(f"[gnn] ogb_products: {shape.n_nodes} nodes padded to {n_pad}, "
+        f"{shape.n_edges} edges padded to {e_pad}, made and copied in "
+        f"{time.perf_counter() - t0:.1f}s")
+    cfg = _specialize(arch.config, shape)
+    p = tree_init(gnn.gnn_param_specs(cfg), generator=torch.Generator(
+        device=DEVICE).manual_seed(0), device=DEVICE)
+    h = F.relu(g["node_feat"] @ p["w_in"] + p["b_in"])
+    msg = h[g["edge_src"].long()]
+    args = (msg, g["edge_dst"], n_pad, g["edge_mask"])
+    got = ops.scatter_sum(*args)
+    torch.cuda.synchronize()
+    err = hold("segment_spmm gin-tu ogb_products layer 1", got,
+               ref.scatter_sum(*args), *TOL_SPMM["float32"])
+    del got
+    log(f"[gnn] ogb_products: B4 on the first aggregation input "
+        f"[{e_pad}, {cfg.d_hidden}] == plain, max abs err {err}")
+    time_spmm("segment_spmm gin-tu ogb_products layer 1", *args, bound, 3)
+    del h, msg, args
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    out, dt, counts = run_counted("gin-tu ogb_products forward",
+                                  lambda: gnn.forward(p, g, cfg),
+                                  {"segment_spmm": cfg.n_layers})
+    if out.shape != (n_pad, shape.n_classes) or not bool(
+            torch.isfinite(out).all()):
+        raise SystemExit("gin-tu ogb_products: logits not finite or of "
+                         f"shape {tuple(out.shape)}")
+    log(f"[gnn] gin-tu ogb_products: one forward {dt * 1e3:.1f} ms "
+        f"({e_pad / dt:.0f} edges/s), finite [{n_pad}, "
+        f"{shape.n_classes}] logits; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, of which "
+        f"{held / 1e9:.2f} GB graph and params")
+    del out
+    profiled("gnn", "gin-tu ogb_products forward",
+             lambda: gnn.forward(p, g, cfg))
+    del g, p
+    torch.cuda.empty_cache()
+    return counts["segment_spmm"], err
+
+
+def dcn_batch(cfg, b, seed):
+    """The JAX recsys tests' batch (uniform ids per field, unit weights),
+    on the host and on the card."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    arrays = {
+        "dense": rng.standard_normal((b, cfg.n_dense)).astype(np.float32),
+        "sparse_ids": np.stack([rng.integers(0, v, (b, cfg.bag_size))
+                                for v in cfg.vocab_sizes], 1).astype(
+                                    np.int32),
+        "sparse_weights": np.ones((b, cfg.n_sparse, cfg.bag_size),
+                                  np.float32),
+    }
+    cpu = {k: torch.as_tensor(v) for k, v in arrays.items()}
+    return cpu, tree_to(cpu, DEVICE)
+
+
+def dcn_serving(bound):
+    """DCN-v2 at full width: serve_p99 against the CPU, B5 on every field
+    at serve_bulk, serve_bulk timed, retrieval_cand against the CPU.
+    Returns B5's launches in the counted runs, its largest error and its
+    timing on the first field at serve_bulk."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import dcn_v2
+    from repro_torch.kernels.embedding_bag import ops, ref
+    from repro_torch.models import recsys
+    from repro_torch.models.params import tree_init
+
+    cfg = dcn_v2.CONFIG
+    shapes = {s.name: s for s in dcn_v2.RECSYS_SHAPES}
+    t0 = time.perf_counter()
+    p = tree_init(recsys.dcn_param_specs(cfg), generator=torch.Generator(
+        device=DEVICE).manual_seed(0), device=DEVICE)
+    torch.cuda.synchronize()
+    p_cpu = tree_to(p, "cpu")
+    log(f"[dcn] {cfg.n_params()} params ({sum(cfg.vocab_sizes)} table rows "
+        f"x {cfg.embed_dim}, item table {cfg.n_items} x "
+        f"{cfg.d_retrieval}) made on the card and copied to the host in "
+        f"{time.perf_counter() - t0:.1f}s")
+    launches, err = 0, 0.0
+
+    # serve_p99: the card's forward against the CPU's
+    b_cpu, b = dcn_batch(cfg, shapes["serve_p99"].batch, 1)
+    want = recsys.forward(p_cpu, b_cpu, cfg)
+    recsys.forward(p, b, cfg)
+    (out, times), _, counts = run_counted(
+        f"dcn-v2 serve_p99 x{TIMED_RUNS}",
+        lambda: timed_runs_of(lambda: recsys.forward(p, b, cfg)),
+        {"embedding_bag": cfg.n_sparse * TIMED_RUNS})
+    launches += counts["embedding_bag"]
+    e = hold("dcn-v2 serve_p99 forward on the card vs the CPU", out.cpu(),
+             want, *scaled_tol(want, DCN_TOL))
+    log(f"[dcn] serve_p99 (B={b['dense'].shape[0]}): forward == CPU forward "
+        f"(max abs err {e}, |logits| <= {float(want.abs().max()):.3f}); ms "
+        "per forward " + ", ".join(f"{t * 1e3:.3f}" for t in times))
+    profiled("dcn", "serve_p99 forward", lambda: recsys.forward(p, b, cfg))
+
+    # serve_bulk: B5 against its plain version on every field, timed
+    b_cpu, b = dcn_batch(cfg, shapes["serve_bulk"].batch, 2)
+    n_bags = b["dense"].shape[0]
+    field_ms, forward_bytes, forward_ops, timing = [], 0, 0, None
+    for i in range(cfg.n_sparse):
+        table = p["tables"][f"t{i}"]
+        ids = b["sparse_ids"][:, i].contiguous()
+        w = b["sparse_weights"][:, i].contiguous()
+        got = ops.embedding_bag(table, ids, w)
+        torch.cuda.synchronize()
+        err = max(err, hold(f"embedding_bag serve_bulk field {i}", got,
+                            ref.embedding_bag(table, ids, w),
+                            *TOL_BAG["float32"]))
+        field_ms.append(cuda_ms(lambda: ops.embedding_bag(table, ids, w),
+                                KERNEL_REPS))
+        # bytes: ids and weights, each distinct row once, the output
+        k, d = ids.shape[1], table.shape[1]
+        rows = int(torch.unique(ids).numel())
+        n_bytes = n_bags * k * (4 + 4) + rows * d * 4 + n_bags * d * 4
+        forward_bytes += n_bytes
+        forward_ops += 2 * n_bags * k * d
+        if i == 0:
+            plain_ms = cuda_ms(lambda: ref.embedding_bag(table, ids, w), 3)
+            F.embedding_bag(ids, table, mode="sum", per_sample_weights=w)
+            library_ms = cuda_ms(lambda: F.embedding_bag(
+                ids, table, mode="sum", per_sample_weights=w), KERNEL_REPS)
+            b_ms, by = bound("embedding_bag serve_bulk field 0", n_bytes,
+                             2 * n_bags * k * d, field_ms[0], rate=FP32_RATE,
+                             unit="fp32")
+            timing = (field_ms[0], plain_ms, b_ms, by, library_ms)
+            log(f"[dcn] embedding_bag serve_bulk field 0 (V="
+                f"{table.shape[0]}, {rows} distinct rows of "
+                f"{n_bags * k} read): kernel {field_ms[0]:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, F.embedding_bag {library_ms:.4f} ms")
+    log(f"[dcn] embedding_bag == plain on all {cfg.n_sparse} fields at "
+        f"serve_bulk (max abs err {err}); kernels {sum(field_ms):.4f} ms "
+        "per forward (fields " + ", ".join(f"{m:.4f}" for m in field_ms)
+        + ")")
+    bound(f"embedding_bag serve_bulk, all {cfg.n_sparse} fields",
+          forward_bytes, forward_ops, sum(field_ms), rate=FP32_RATE,
+          unit="fp32")
+    recsys.forward(p, b, cfg)
+    (out, times), _, counts = run_counted(
+        f"dcn-v2 serve_bulk x{TIMED_RUNS}",
+        lambda: timed_runs_of(lambda: recsys.forward(p, b, cfg)),
+        {"embedding_bag": cfg.n_sparse * TIMED_RUNS})
+    launches += counts["embedding_bag"]
+    if out.shape != (n_bags,) or not bool(torch.isfinite(out).all()):
+        raise SystemExit("dcn-v2 serve_bulk: logits not finite")
+    log(f"[dcn] serve_bulk (B={n_bags}, bag {cfg.bag_size}): ms per forward "
+        + ", ".join(f"{t * 1e3:.3f}" for t in times)
+        + f"; examples/s best {n_bags / min(times):.0f}")
+    profiled("dcn", "serve_bulk forward", lambda: recsys.forward(p, b, cfg))
+    del b, b_cpu, out
+
+    # retrieval_cand: one query against 1M candidates, top 100
+    shape = shapes["retrieval_cand"]
+    q_cpu, q = dcn_batch(cfg, shape.batch, 3)
+    cand_cpu = torch.as_tensor(np.random.default_rng(4).permutation(
+        cfg.n_items)[:shape.n_candidates].astype(np.int32))
+    cand = cand_cpu.to(DEVICE)
+    want_s, want_i = recsys.retrieval_step(p_cpu, q_cpu, cand_cpu, cfg,
+                                           top_k=TOP_K)
+    recsys.retrieval_step(p, q, cand, cfg, top_k=TOP_K)
+    (top_s, top_i), dt, counts = run_counted(
+        "dcn-v2 retrieval_cand",
+        lambda: recsys.retrieval_step(p, q, cand, cfg, top_k=TOP_K),
+        {"embedding_bag": cfg.n_sparse})
+    launches += counts["embedding_bag"]
+    e = hold("dcn-v2 retrieval scores on the card vs the CPU", top_s.cpu(),
+             want_s, *scaled_tol(want_s, DCN_TOL))
+    gaps = (want_s[:, 1:] - want_s[:, :-1]).abs() > 1e-5
+    distinct = torch.ones_like(want_s, dtype=torch.bool)
+    distinct[:, 1:] &= gaps
+    distinct[:, :-1] &= gaps
+    if not torch.equal(top_i.cpu()[distinct], want_i[distinct]):
+        raise SystemExit("dcn-v2 retrieval: top ids differ from the CPU's "
+                         "where the scores are distinct")
+    log(f"[dcn] retrieval_cand: 1 query x {shape.n_candidates} candidates, "
+        f"top {TOP_K} == CPU (score err {e}; ids equal at "
+        f"{int(distinct.sum())} distinct scores); {dt * 1e3:.3f} ms")
+    profiled("dcn", "retrieval_cand", lambda: recsys.retrieval_step(
+        p, q, cand, cfg, top_k=TOP_K))
+    del p, p_cpu
+    torch.cuda.empty_cache()
+    return launches, err, timing
 
 
 def main() -> int:
@@ -279,6 +843,10 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.zone_scan import ops, ref
 
+    # every float32 matmul in full float32 (the CPU forwards are the
+    # reference of the card's)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     # -- 1. device ------------------------------------------------------
     smi = nvidia_smi("name,power.limit")
@@ -337,18 +905,18 @@ def main() -> int:
         f"{fl.n_slots} flat slots, sweep_slots {fl.sweep_slots}")
     d, lm = FULL_PARAMS["delta"], FULL_PARAMS["l_max"]
     limbs = encoding.n_limbs(lm)
-    bw = copy_bandwidth()
     int_rate = props.multi_processor_count * 64 * sm_clock_mhz * 1e6
     log(f"[bound] integer rate {props.multi_processor_count} SMs x 64 x "
-        f"{sm_clock_mhz:.0f} MHz = {int_rate / 1e12:.2f} Tops/s; measured "
-        f"copy rate {bw / 1e9:.0f} GB/s")
+        f"{sm_clock_mhz:.0f} MHz = {int_rate / 1e12:.2f} Tops/s; bytes "
+        f"over the published {HBM_RATE / 1e9:.0f} GB/s (measured copy rate "
+        f"{copy_bandwidth() / 1e9:.0f} GB/s; card {smi})")
 
-    def bound(name, n_bytes, n_ops, ms):
-        bytes_ms = n_bytes / bw * 1e3
-        ops_ms = n_ops / int_rate * 1e3
+    def bound(name, n_bytes, n_ops, ms, rate=int_rate, unit="int"):
+        bytes_ms = n_bytes / HBM_RATE * 1e3
+        ops_ms = n_ops / rate * 1e3
         b_ms = max(bytes_ms, ops_ms)
         by = "bytes" if bytes_ms >= ops_ms else "operations"
-        log(f"[bound] {name}: {n_ops} int ops = {ops_ms:.4f} ms; {n_bytes} "
+        log(f"[bound] {name}: {n_ops} {unit} ops = {ops_ms:.4f} ms; {n_bytes} "
             f"bytes = {bytes_ms:.4f} ms; bound {b_ms:.4f} ms by {by}; "
             f"kernel {ms:.4f} ms, at {b_ms / ms:.1%} of its bound")
         return b_ms, by
@@ -536,32 +1104,7 @@ def main() -> int:
         f"merge_cap {merge_cap})")
     del main_code, main_length, sign
 
-    # device busy share of one warm discover, from the profiler's trace
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        engine.discover(graph)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # device activities only (kernels, memsets, copies); the operators
-    # that launched them carry the same time again as their children
-    by_name: dict[str, float] = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            ms = e.time_range.elapsed_us() / 1e3
-            by_name[e.name] = by_name.get(e.name, 0.0) + ms
-    busy_ms = sum(by_name.values())
-    if busy_ms > 0:
-        top = sorted(by_name.items(), key=lambda r: -r[1])[:6]
-        log(f"[main] profiled warm discover: wall {wall_ms:.3f} ms, device "
-            f"busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}), idle "
-            f"{1 - busy_ms / wall_ms:.1%}; top device time: " + "; ".join(
-                f"{k[:60]} {ms:.3f} ms" for k, ms in top))
-    else:
-        log("[main] profiler recorded no device time: busy share not "
-            "measured")
+    profiled("main", "warm discover", lambda: engine.discover(graph))
 
     def timed_runs():
         times, last = [], None
@@ -597,30 +1140,55 @@ def main() -> int:
         f"{path}, {len(res.counts)} unique codes, {res.total_processes()} "
         f"processes")
 
-    # -- 8. kernels -----------------------------------------------------
+    # -- 8. model-zoo kernels vs plain ----------------------------------
+    t_phase = time.perf_counter()
+    errs["segment_spmm"] = check_spmm_shapes()
+    errs["embedding_bag"] = check_bag_shapes()
+    log(f"[kernel-vs-plain] model zoo phase "
+        f"{time.perf_counter() - t_phase:.1f}s")
+
+    # -- 9. GNN inference -----------------------------------------------
+    t_phase = time.perf_counter()
+    spmm_launches, spmm_err, timing["segment_spmm"] = gnn_minibatch(bound)
+    n, err = gnn_ogb_products(bound)
+    spmm_launches += n
+    errs["segment_spmm"] = max(errs["segment_spmm"], spmm_err, err)
+    log(f"[gnn] phase {time.perf_counter() - t_phase:.1f}s")
+
+    # -- 10. DCN-v2 serving ---------------------------------------------
+    t_phase = time.perf_counter()
+    bag_launches, err, timing["embedding_bag"] = dcn_serving(bound)
+    errs["embedding_bag"] = max(errs["embedding_bag"], err)
+    log(f"[dcn] phase {time.perf_counter() - t_phase:.1f}s")
+
+    # -- 11. kernels ----------------------------------------------------
     rows = (
-        ("fused_zone_scan_flat", "fused_zone_scan.cu", ":429", launches),
-        ("fused_zone_scan_flat_ts", "fused_zone_scan.cu", ":429 (with_ts)",
-         flat_ts_launches),
-        ("zone_scan_dense", "zone_scan.cu", ":245", dense_launches),
-        ("zone_scan_dense_ts", "zone_scan.cu", ":245 (with_ts)",
+        ("fused_zone_scan_flat", SRC + "fused_zone_scan.cu", TPU + ":429",
+         launches),
+        ("fused_zone_scan_flat_ts", SRC + "fused_zone_scan.cu",
+         TPU + ":429 (with_ts)", flat_ts_launches),
+        ("zone_scan_dense", SRC + "zone_scan.cu", TPU + ":245",
+         dense_launches),
+        ("zone_scan_dense_ts", SRC + "zone_scan.cu", TPU + ":245 (with_ts)",
          dense_ts_launches),
+        ("segment_spmm", SPMM_SRC, SPMM_TPU, spmm_launches),
+        ("embedding_bag", BAG_SRC, BAG_TPU, bag_launches),
     )
     kernels = []
-    for name, src, line, n in rows:
-        ms, plain_ms, bound_ms, bound_by = timing[name]
+    for name, src, replaces, n in rows:
+        ms, plain_ms, bound_ms, bound_by, *library = timing[name]
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": SRC + src,
-            "replaces": TPU + line,
+            "source": src,
+            "replaces": replaces,
             "launches": n,
             "max_abs_err": errs[name],
             "ms": ms,
             "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": bound_by,
-            "library_ms": None,
+            "library_ms": library[0] if library else None,
         })
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))

@@ -7,7 +7,9 @@ Subpackages:
   core     the paper's algorithm (TZP + expansion + signed aggregation)
   kernels  hand-written CUDA kernels for Hopper, each beside its plain
            PyTorch version
-  data     synthetic temporal-graph generators
+  models   the model zoo's GNN layers and DCN-v2, with parameter trees
+  configs  the registry of the ported model archs
+  data     synthetic temporal graphs, graph batches and recsys batches
   obs      metrics, spans and timing helpers
   launch   the mining CLI
 """

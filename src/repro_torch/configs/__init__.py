@@ -1,0 +1,51 @@
+"""Architecture registry: ``get_arch(<id>)`` resolves here.
+
+The archs ported so far: the three GNN archs of ``models/gnn.py`` and the
+DCN-v2 recsys arch.  Each entry is a :class:`common.ArchDef` with a full
+config, a reduced smoke config (CPU tests) and its shape set.  The JAX
+package's other archs raise ``NotImplementedError`` naming the ROADMAP
+slice that ports them.
+"""
+
+from __future__ import annotations
+
+from .common import ArchDef  # noqa: F401
+
+#: archs of the JAX package not ported yet -> the slice that ports them
+UNPORTED = {
+    **dict.fromkeys(("granite-8b", "gemma3-1b", "qwen2-72b",
+                     "moonshot-v1-16b-a3b", "arctic-480b", "equiformer-v2"),
+                    "slice 9 (the rest of the model zoo and training)"),
+    "ptmt-mining": "slice 10 (cost analysis: the dry-run cells)",
+}
+
+
+def _registry() -> dict:
+    from . import dcn_v2, gat_cora, gatedgcn, gin_tu  # keep import light
+
+    archs = [gatedgcn.ARCH, gin_tu.ARCH, gat_cora.ARCH, dcn_v2.ARCH]
+    return {a.name: a for a in archs}
+
+
+_CACHE: dict | None = None
+
+
+def registry() -> dict:
+    global _CACHE
+    if _CACHE is None:
+        _CACHE = _registry()
+    return _CACHE
+
+
+def get_arch(name: str) -> ArchDef:
+    reg = registry()
+    if name in reg:
+        return reg[name]
+    if name in UNPORTED:
+        raise NotImplementedError(
+            f"arch {name!r} is not ported yet: ROADMAP {UNPORTED[name]}")
+    raise KeyError(f"unknown arch {name!r}; have {sorted(reg)}")
+
+
+def arch_names() -> list[str]:
+    return sorted(registry())

@@ -1,14 +1,17 @@
-"""Carry data, layouts, count tables and configs across packages.
+"""Carry data, layouts, count tables, model weights and configs across
+packages.
 
-PTMT has no model weights: the state that crosses between the JAX package
-and this port is data (edge streams), zone plans and layouts, count tables
-and configs.  These helpers take anything numpy can read (numpy arrays, or
-the JAX package's arrays through ``np.asarray``) and never import the JAX
-package.  ``ZonePlan.to_json``/``from_json`` already round-trip plans.
+The state that crosses between the JAX package and this port is data
+(edge streams), zone plans and layouts, count tables, the model zoo's
+parameter trees, and configs.  These helpers take anything numpy can read
+(numpy arrays, or the JAX package's arrays through ``np.asarray``) and
+never import the JAX package.  ``ZonePlan.to_json``/``from_json`` already
+round-trip plans.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 
 import numpy as np
@@ -82,3 +85,59 @@ def config_from_json(data: str | bytes | dict) -> MiningConfig:
         if name in BACKEND_NAMES:
             data[field] = BACKEND_NAMES[name]
     return MiningConfig.from_json(data)
+
+
+def _tensor(x, device) -> torch.Tensor:
+    arr = np.asarray(x)
+    if arr.dtype.name == "bfloat16":      # ml_dtypes: torch reads the bits
+        return torch.as_tensor(arr.view(np.uint16).copy(),
+                               device=device).view(torch.bfloat16)
+    return torch.as_tensor(arr.copy(), device=device)
+
+
+def params_from_numpy(tree, device=None):
+    """The port's parameter tree from the JAX package's (nested dicts of
+    arrays): the same keys, shapes, layouts and dtypes, as tensors on
+    ``device`` (default CUDA, raising without one)."""
+    from .executor import resolve_device
+
+    device = resolve_device(device)
+
+    def convert(node):
+        if isinstance(node, dict):
+            return {k: convert(v) for k, v in node.items()}
+        return _tensor(node, device)
+
+    return convert(tree)
+
+
+#: config fields of the JAX package with no counterpart here: the kernel is
+#: chosen by the tensors' device, inference neither remats, unrolls nor
+#: drops out, and no code reads ``eps_learnable`` (eps is always a
+#: parameter)
+DROPPED_MODEL_FIELDS = ("use_pallas", "remat", "unroll_scans",
+                        "eps_learnable", "dropout")
+
+
+def _model_config(cls, cfg):
+    data = dataclasses.asdict(cfg) if dataclasses.is_dataclass(cfg) \
+        else dict(cfg)
+    for field in DROPPED_MODEL_FIELDS:
+        data.pop(field, None)
+    return cls(**data)
+
+
+def gnn_config_from(cfg):
+    """The port's :class:`~repro_torch.models.gnn.GNNConfig` from the JAX
+    package's ``GNNConfig`` (or its fields as a dict)."""
+    from repro_torch.models.gnn import GNNConfig
+
+    return _model_config(GNNConfig, cfg)
+
+
+def dcn_config_from(cfg):
+    """The port's :class:`~repro_torch.models.recsys.DCNConfig` from the
+    JAX package's ``DCNConfig`` (or its fields as a dict)."""
+    from repro_torch.models.recsys import DCNConfig
+
+    return _model_config(DCNConfig, cfg)

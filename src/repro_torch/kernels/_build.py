@@ -7,8 +7,8 @@ use, into one shared library with a plain C interface::
          -Xcompiler -fPIC -Xptxas -v -o <lib>.so <source>.cu
 
 The libraries go to ``build/repro_torch_kernels/`` at the root of the
-checkout, named by a hash of the source, its directory's headers and the
-flags, so a changed source rebuilds and an unchanged one loads as it is.
+checkout, named by a hash of the source, its directory's headers, the
+shared headers under ``common/csrc/`` and the flags, so a changed source rebuilds and an unchanged one loads as it is.
 :func:`build_all` starts one ``nvcc`` per source at once and waits for all
 of them.  ``nvcc`` comes from ``$CUDA_HOME/bin``, else ``PATH``, else the
 CUDA home PyTorch found; a missing ``nvcc`` raises.
@@ -27,6 +27,8 @@ from pathlib import Path
 
 _KERNELS = Path(__file__).resolve().parent
 BUILD_DIR = _KERNELS.parents[2] / "build" / "repro_torch_kernels"
+#: headers shared by sources of several kernels
+COMMON = _KERNELS / "common" / "csrc"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler",
               "-fPIC", "-Xptxas", "-v")
@@ -64,7 +66,8 @@ def find_nvcc() -> str:
 
 def _lib_path(src: Path) -> Path:
     h = hashlib.sha256()
-    for f in [src, *sorted(src.parent.glob("*.cuh"))]:
+    for f in [src, *sorted(src.parent.glob("*.cuh")),
+              *sorted(COMMON.glob("*.cuh"))]:
         h.update(f.name.encode())
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

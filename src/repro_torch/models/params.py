@@ -1,0 +1,77 @@
+"""Parameter declaration: shapes, dtypes and logical shardings in one tree.
+
+Parameters are plain nested dicts of tensors.  Each model declares a
+matching tree of :class:`ParamSpec`; :func:`tree_init` makes the tensors
+from it with an explicit :class:`torch.Generator`, :func:`count_params`
+counts them.  The init rules are the JAX package's (``normal`` with a
+fan-in scale, ``zeros``, ``ones``, ``embed``); the numbers differ, as two
+generators do.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+
+class ParamSpec(NamedTuple):
+    shape: tuple
+    dtype: torch.dtype = torch.float32
+    logical: tuple = ()          # logical partition spec, same rank as shape
+    init: str = "normal"         # normal | zeros | ones | embed
+    scale: float | None = None   # stddev override
+
+
+def is_spec(x) -> bool:
+    return isinstance(x, ParamSpec)
+
+
+def tree_leaves(specs) -> list[ParamSpec]:
+    """The specs of a tree, in the JAX package's flatten order (dict keys
+    sorted)."""
+    if is_spec(specs):
+        return [specs]
+    return [leaf for k in sorted(specs) for leaf in tree_leaves(specs[k])]
+
+
+def _fan_in(shape) -> int:
+    if len(shape) == 1:
+        return shape[0]
+    return math.prod(shape[:-1])
+
+
+def init_param(spec: ParamSpec, *, generator: torch.Generator, device):
+    """One parameter by its spec's init rule; normal draws are float32 from
+    ``generator`` (on the generator's device), then cast and moved."""
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=spec.dtype, device=device)
+    if spec.init == "embed":
+        scale = spec.scale or 1.0
+    else:
+        scale = spec.scale or 1.0 / math.sqrt(max(_fan_in(spec.shape), 1))
+    x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
+                    device=generator.device)
+    return (x * scale).to(dtype=spec.dtype, device=device)
+
+
+def tree_init(specs, *, generator: torch.Generator, device=None):
+    """A tree of tensors shaped like ``specs`` (leaves drawn in flatten
+    order).  ``device`` defaults to CUDA, and raises without one."""
+    from repro_torch.core.executor import resolve_device
+
+    device = resolve_device(device)
+
+    def init(node):
+        if is_spec(node):
+            return init_param(node, generator=generator, device=device)
+        return {k: init(node[k]) for k in sorted(node)}
+
+    return init(specs)
+
+
+def count_params(specs) -> int:
+    return int(sum(math.prod(s.shape) for s in tree_leaves(specs)))
