@@ -15,7 +15,11 @@ launch, and checks them:
    generator at the edge count of SNAP's email-Eu-core-temporal, 332,334
    edges, at the paper's defaults delta=600, l_max=6, omega=20 (the flat
    kernel on the 376,832-slot stream, the dense kernel on its largest
-   bucket; the dense kernel is timed on every bucket);
+   bucket; the dense kernel is timed on every bucket, with its block
+   size, resident blocks and waves, and the per-lane sweep counts that
+   its hybrid sweep answers: warp use of lanes sweeping alone, and the
+   lanes still open after the solo slots); the dense kernel also on
+   adversarial rows (``adversarial_rows``);
 4. lossless TZP: ``discover`` on ``backend="cuda"`` equals ``sequential``
    on ``backend="ref"`` (collegemsg-like), and the bursty corpus equals
    the brute-force oracle;
@@ -29,7 +33,10 @@ launch, and checks them:
    a traced run for the time breakdown, then three timed runs;
 8. the model zoo's kernels against their plain versions on the card: the
    segment scatter-sum (B4) on the JAX tests' shapes in f32 and bf16,
-   with a mask, out-of-range ids and a hot segment; the embedding bag
+   with a mask, out-of-range ids and a hot segment, every segment split
+   into chunks or none, each bitwise the same in two launches, and on a
+   hot segment of 8M rows (10M rows into 100,000 segments), timed split
+   and unsplit; the embedding bag
    (B5) on the JAX tests' shapes in f32 and bf16 and with ids outside the
    table; each timed beside its plain version and one PyTorch library
    call (``index_add_``, ``F.embedding_bag``) that is used nowhere else;
@@ -39,10 +46,12 @@ launch, and checks them:
    each forward held against the same forward on the CPU, B4 held
    against its plain version on each model's first real aggregation
    input, timed (ms per forward, edges/s) with 5, 2 and 32 B4 launches
-   per forward; then ``gin-tu`` on ``ogb_products`` (2,449,029 nodes,
-   61,859,328 padded edges): B4 on the first layer's aggregation against
-   its plain version, timed alone and with its wrapper's sort, and one
-   forward with its peak device memory;
+   and one segment plan per forward; B4 on gin-tu's first aggregation
+   with the ``h[src]`` gather fused and not (bitwise the same), timed
+   beside the plan build, the gather and ``index_add_``; then ``gin-tu``
+   on ``ogb_products`` (2,449,029 nodes, 61,859,328 padded edges): the
+   same for its first layer, and one forward, which makes no ``[E, D]``
+   message tensor, with its peak device memory;
 10. DCN-v2 serving at full width (26 tables, 22,875,000 rows x 16, a
     4M x 64 item table, seeded init on the card): ``serve_p99`` (512
     examples) held against the CPU forward, B5 held against its plain
@@ -86,6 +95,8 @@ FULL_PARAMS = dict(delta=600, l_max=6, omega=20)
 COMINE = [(d, lm) for d in (600, 300) for lm in (6, 4)]
 TIMED_RUNS = 3
 KERNEL_REPS = 20
+# slots a lane of the dense kernel sweeps alone (kSoloSlots, zone_scan.cu)
+SOLO_SLOTS = 32
 DEVICE = "cuda"
 # per visited slot the flat kernel loads zone_id, valid, t, u, v (5), tests
 # the zone and the validity (2), forms the gap and its two tests (3), and
@@ -122,6 +133,8 @@ GNN_MODELS = (("gin-tu", 5), ("gat-cora", 2), ("gatedgcn", 32))
 # the output's largest magnitude (matmuls and sums run in another order)
 GNN_TOL, DCN_TOL = 1e-4, 1e-5
 TOP_K = 100
+# B4's hot segment at size: rows, segments, width (80% of rows in one)
+HOT_SEGMENT = (10_000_000, 100_000, 64)
 
 
 def log(msg: str) -> None:
@@ -154,6 +167,83 @@ def powerlaw_bursty(seed, n=220, nodes=9):
         now += int(rng.integers(150, 700))
     return from_edges(np.asarray(us[:n]), np.asarray(vs[:n]),
                       np.asarray(ts[:n]))
+
+
+def adversarial_rows(w: int, e_cap: int = 2600, seed: int = 3):
+    """A ``[Z, E]`` zone batch that probes the dense kernel's hybrid sweep
+    (each lane alone for ``w`` slots, then its warp 32 slots per step), at
+    ``delta=1000``; ``E`` is no multiple of 32, so warps straddle rows.
+
+    Row 0: lane 0 crosses E - 200 slots within delta with no event (the
+    fillers' nodes are all new), then extends, meets a tie, an earlier
+    time and an invalid would-be event, extends again and times out; every
+    filler lane crosses the row too; after the time-out an edge would
+    extend lane 0 were it alive.  Rows 1 and 2: extensions exactly at
+    the last solo slot ``w``, the first cooperative slot, a 32-slot chunk
+    boundary and the last slot of a chunk, then a full lane with events
+    after it; row 2 seeds at slot 5, so its lanes sit elsewhere in their
+    warps.  Row 3: ties and invalid would-be events inside and after the
+    solo slots, an invalid would-be time-out, a real time-out and an edge
+    that would extend the lane were it alive.  Row
+    4: an unsorted row (random times over six nodes, 80% valid).  Row 5: a
+    sorted bursty row over eight nodes.
+    """
+    from types import SimpleNamespace
+
+    rng = np.random.default_rng(seed)
+    z = 6
+    u = np.zeros((z, e_cap), np.int64)
+    v = np.zeros((z, e_cap), np.int64)
+    t = np.zeros((z, e_cap), np.int64)
+    valid = np.ones((z, e_cap), bool)
+    fresh = iter(range(1000, 1000 + 2 * z * e_cap))
+    for r in range(4):                 # fillers: new nodes, small times
+        for j in range(e_cap):
+            u[r, j], v[r, j] = next(fresh), next(fresh)
+            t[r, j] = j // 8
+
+    def put(r, j, a, b, when, ok=True):
+        u[r, j], v[r, j], t[r, j], valid[r, j] = a, b, when, ok
+
+    quiet = e_cap - 200
+    put(0, 0, 0, 1, 0)
+    put(0, quiet, 1, 2, quiet // 8 + 1)                   # extension
+    put(0, quiet + 1, 5, 2, quiet // 8 + 1)               # tie: no event
+    put(0, quiet + 2, 2, 7, quiet // 8)                   # earlier time
+    put(0, quiet + 3, 2, 8, quiet // 8 + 9, ok=False)     # invalid
+    put(0, quiet + 4, 2, 9, quiet // 8 + 10)              # extension
+    t[0, quiet + 5:] = quiet // 8 + 10 + 1001              # time-outs
+    put(0, quiet + 6, 1, 3, quiet // 8 + 20)     # an event, were it alive
+    for r, s0 in ((1, 0), (2, 5)):
+        put(r, s0, 0, 1, s0 // 8)
+        first = s0 + w + 1                 # first slot of the warp phase
+        marks = [s0 + w, first, first + 1 + 32, first + 1 + 32 + 1 + 31,
+                 first + 1 + 32 + 1 + 31 + 1 + 96, first + 400]
+        node = 1
+        for j in marks:                    # a chain: each touches the last
+            put(r, j, node, 10 + node, j)
+            node = 10 + node
+    put(3, 0, 0, 1, 100)
+    for j in (3, 20, w, w + 1):
+        put(3, j, 1, 50 + j, 100)                         # ties
+    for j in (10, w + 2, w + 33):
+        put(3, j, 1, 60 + j, 150, ok=False)               # invalid events
+    put(3, 70, 1, 2, 150)                                 # extension
+    t[3, 71:] = 150
+    put(3, 75, 2, 3, 150)                                 # tie
+    put(3, 90, 70, 71, 5000, ok=False)                    # invalid time-out
+    put(3, 200, 70, 71, 1151)                             # time-out
+    t[3, 201:] = 1151
+    put(3, 201, 2, 4, 160)                       # an event, were it alive
+    u[4] = rng.integers(0, 6, e_cap)
+    v[4] = rng.integers(0, 6, e_cap)
+    t[4] = rng.integers(0, 20_000, e_cap)
+    valid[4] = rng.random(e_cap) < 0.8
+    u[5] = rng.integers(0, 8, e_cap)
+    v[5] = rng.integers(0, 8, e_cap)
+    t[5] = np.cumsum(rng.integers(0, 40, e_cap))
+    return SimpleNamespace(u=u.astype(np.int32), v=v.astype(np.int32),
+                           t=t.astype(np.int32), valid=valid)
 
 
 def cuda_ms(fn, reps: int = 1) -> float:
@@ -220,9 +310,10 @@ def demangle(names) -> dict:
 
 def report_registers(logs: dict) -> None:
     """Registers of every entry function, from ``ptxas -v``: the zone-scan
-    instantiations by ``l_max`` and variant, every other kernel by name;
-    and whether any entry function spills."""
-    spills, others = [], []
+    instantiations by ``l_max`` and variant, every other kernel by name
+    (the range over its template instantiations); and the entry functions
+    that spill, with their spill bytes."""
+    spills, others = [], {}
     by_lmax: dict[str, list] = {}
     for src, text in logs.items():
         # one block per entry function, whatever order ptxas reports in
@@ -234,24 +325,41 @@ def report_registers(logs: dict) -> None:
             if not (regs and spill):
                 log(f"[build] {src}: no register report read for {name}")
                 continue
-            if int(spill.group(1)) or int(spill.group(2)):
-                spills.append(name)
             inst = re.search(r"ILi(\d+)ELb([01])E", name)
+            if int(spill.group(1)) or int(spill.group(2)):
+                spills.append((src, name, inst, spill.group(1),
+                               spill.group(2)))
             if inst:        # the zone-scan template <l_max, with_ts>
                 by_lmax.setdefault(src, []).append(
                     (int(inst.group(1)), int(inst.group(2)),
                      int(regs.group(1))))
             else:
-                others.append((src, name, int(regs.group(1))))
+                others.setdefault((src, name), int(regs.group(1)))
     for src, rows in by_lmax.items():
         rows.sort()
         for ts in (0, 1):
             log(f"[build] {src} with_ts={ts}: registers by l_max "
                 + ", ".join(f"{lm}:{r}" for lm, t, r in rows if t == ts))
-    names = demangle([name for _, name, _ in others])
-    for src, name, r in others:
-        log(f"[build] {src} {names[name]}: {r} registers")
-    log(f"[build] spills: {spills if spills else 'none'}")
+    names = demangle([name for _, name in others])
+
+    def short_name(name):     # "kernel<args>" without namespace or params
+        full = names.get(name, name)
+        full = full[:full.find(">(") + 1] if ">(" in full else full
+        return full.split("::")[-1] if "::" in full else full
+
+    kernels: dict[tuple, list] = {}
+    for (src, name), r in others.items():
+        base = short_name(name).split("<")[0].split("(")[0]
+        kernels.setdefault((src, base), []).append(r)
+    for (src, base), regs in kernels.items():
+        log(f"[build] {src} {base}: {min(regs)}-{max(regs)} registers over "
+            f"{len(regs)} instantiation(s)")
+    short = []
+    for src, name, inst, st, ld in spills:
+        label = (f"l_max={inst.group(1)} ts={inst.group(2)}" if inst
+                 else short_name(name))
+        short.append(f"{src} {label} ({st}/{ld} bytes stored/loaded)")
+    log(f"[build] spills: {'; '.join(short) if short else 'none'}")
 
 
 def check_flat(name, fl, *, delta, l_max, with_ts):
@@ -304,19 +412,55 @@ def check_dense(name, b, *, delta, l_max):
     return args, plain_s, max(err, err_ts)
 
 
-def dense_live_steps(args, *, delta, l_max) -> int:
-    """Slots the dense kernel's lanes visit on one ``[Z, E]`` batch: the
-    flat sweep's count on the same rows laid end to end, one block per
-    row (the two kernels share the row sweep)."""
+def dense_lane_steps(args, *, delta, l_max):
+    """Slots each lane of one ``[Z, E]`` batch visits in the sequential
+    sweep, its seed included (``int64[Z * E]`` in the kernel's lane order,
+    0 for an invalid slot): the flat sweep's count on the same rows laid
+    end to end, one block per row (every sweep of the kernels stops where
+    ``ptmt::sweep_row`` stops)."""
     import torch
     from repro_torch.kernels.zone_scan import ref
 
     z, e = args[0].shape
     rows = torch.arange(z, dtype=torch.int32, device=DEVICE)
     zone_id = rows.repeat_interleave(e)
-    return ref.live_steps(
+    return ref.lane_steps(
         *(x.reshape(-1) for x in args), zone_id, rows * e, (rows + 1) * e,
         delta=delta, l_max=l_max, blk=e)
+
+
+def sweep_counts(label, steps) -> None:
+    """Logs how a warp of lanes that each sweep alone would use its
+    lane-steps on one batch, and what the dense kernel's hybrid sweep
+    leaves at W = 16 and at its W = SOLO_SLOTS solo slots: lanes still open
+    after W, the warp-steps of the capped solo phase, and the 32-slot steps
+    the open lanes' remaining slots need (each event the warp applies adds
+    at most one more).  Counts, not times."""
+    import torch
+
+    after = (steps - 1).clamp(min=0)              # slots after the seed
+    pad = -after.numel() % 32
+    warps = torch.cat([after, after.new_zeros(pad)]).view(-1, 32)
+    longest = int(warps.max(1).values.sum())
+    busy = int(after.sum())
+    q = torch.quantile(after[after > 0].double(), torch.tensor(
+        [0.5, 0.99], dtype=torch.float64, device=after.device)).tolist() \
+        if busy else [0.0, 0.0]
+    hybrid = []
+    for w in (16, SOLO_SLOTS):
+        solo = int(warps.clamp(max=w).max(1).values.sum())
+        left = (after - w).clamp(min=0)
+        chunks = int(((left + 31) // 32).sum())
+        hybrid.append(f"W={w}: {solo} solo warp-steps, {int((left > 0).sum())}"
+                      f" lanes open after W, their {int(left.sum())} slots in"
+                      f" >= {chunks} 32-slot steps, >= {solo + chunks} "
+                      "warp-steps in all")
+    log(f"  sweep counts {label}: {after.numel()} lanes, {busy} slots "
+        f"visited after the seed (mean {busy / max(1, after.numel()):.1f}, "
+        f"median {q[0]:.0f}, p99 {q[1]:.0f}, max {int(after.max())} of a "
+        f"visiting lane); lanes sweeping alone: {longest} warp-steps, "
+        f"{busy / max(1, 32 * longest):.1%} of their lane-steps busy; "
+        "hybrid " + "; ".join(hybrid))
 
 
 def kernel_ops():
@@ -362,9 +506,10 @@ def profiled(tag, label, fn, top_n: int = 6) -> None:
 
 
 def run_counted(label, fn, expect):
-    """Run one path with every launch count at 0 before and read after;
-    fails when a kernel in ``expect`` ran no launch (or, where ``expect``
-    gives a number, another number of launches)."""
+    """Run one path with every launch count (and B4's count of segment
+    plans) at 0 before and read after; fails when a kernel in ``expect``
+    ran no launch (or, where ``expect`` gives a number, another number of
+    launches)."""
     import torch
 
     modules = kernel_ops()
@@ -375,7 +520,9 @@ def run_counted(label, fn, expect):
     res = fn()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = {k: v for ops in modules for k, v in ops.launches.items()}
+    counts = {k: v for ops in modules
+              for k, v in (*ops.launches.items(),
+                           *getattr(ops, "plans", {}).items())}
     for name, n in expect.items():
         if counts[name] == 0 or (n is not None and counts[name] != n):
             raise SystemExit(f"{label}: {name} launched {counts[name]} "
@@ -477,15 +624,85 @@ def check_spmm_shapes() -> float:
         for dt in errs:
             v = torch.as_tensor(values, device=DEVICE).to(getattr(torch, dt))
             got = ops.scatter_sum(v, seg, n, mask)
+            plan = ops.plan(seg, n, mask)
+            # every segment split into chunks of 1 and 7 rows, or none
+            outs = [ops.launch_kernel(v, plan, plan.order, chunk=c)
+                    for c in (1, 7, e)]
             torch.cuda.synchronize()
+            if not torch.equal(got, ops.scatter_sum(v, seg, n, mask)):
+                raise SystemExit(f"segment_spmm {label} {dt}: two launches "
+                                 "differ")
             want = ref.scatter_sum(v.float(), seg, n, mask)
             rtol, atol = tol if tol and dt == "float32" else TOL_SPMM[dt]
-            err = hold(f"segment_spmm {label} {dt}", got, want, rtol, atol)
-            errs[dt] = max(errs[dt], err)
-    log(f"[kernel-vs-plain] segment_spmm on {len(cases)} cases x f32/bf16: "
-        f"max abs err f32 {errs['float32']}, bf16 {errs['bfloat16']} "
-        f"(tolerances {TOL_SPMM})")
+            for c, out in zip(("default", 1, 7, e), [got, *outs]):
+                err = hold(f"segment_spmm {label} {dt} chunk {c}", out, want,
+                           rtol, atol)
+                errs[dt] = max(errs[dt], err)
+    log(f"[kernel-vs-plain] segment_spmm on {len(cases)} cases x f32/bf16 x "
+        f"chunks {ops.CHUNK_ROWS}, 1, 7 and unsplit, each bitwise the same "
+        f"in two launches: max abs err f32 {errs['float32']}, bf16 "
+        f"{errs['bfloat16']} (tolerances {TOL_SPMM})")
     return errs["float32"]
+
+
+def spmm_hot_segment(bound) -> float:
+    """B4 on a hot segment at a large size: 10M rows of 64 f32 (N(0, 1)
+    from a seed) into 100,000 segments, 80% of them into segment 3.
+    Held against the plain version accumulated in float64 (the fp32 plain
+    version rounds each of 8M adds of a running sum of ~10^3, and its
+    atomic order differs per run), at TOL_SPMM's rtol and an atol of
+    TOL_SPMM's 1e-5 times the largest |sum|, as a whole forward is held;
+    bitwise the same in two launches; timed split (chunks of CHUNK_ROWS
+    rows, each on its own warp, and a combine of their fp32 sums) and
+    unsplit (the hot segment on one warp).  Returns the error."""
+    import torch
+    from repro_torch.kernels.segment_spmm import ops, ref
+
+    (e, n, d), hot = HOT_SEGMENT, 3
+    gen = torch.Generator(device=DEVICE).manual_seed(17)
+    values = torch.randn((e, d), generator=gen, device=DEVICE)
+    seg = torch.randint(0, n, (e,), generator=gen, device=DEVICE,
+                        dtype=torch.int32)
+    seg = torch.where(torch.rand(e, generator=gen, device=DEVICE) < 0.8,
+                      hot, seg)
+    plan = ops.plan(seg, n)
+    got = ops.segment_sum(values, plan)
+    again = ops.segment_sum(values, plan)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise SystemExit("segment_spmm hot segment: two launches differ")
+    want = ref.scatter_sum(values, seg, n, acc_dtype=torch.float64)
+    rtol, atol = TOL_SPMM["float32"]
+    err = hold("segment_spmm hot segment vs plain in float64", got, want,
+               rtol, atol * float(want.abs().max()))
+    plain32 = ref.scatter_sum(values, seg, n)
+    err32 = float((plain32 - want).abs().max())
+    split_ms = cuda_ms(lambda: ops.launch_kernel(values, plan, plan.order),
+                       5)
+    # the chunk size: the longest segment one lane group sums alone, and
+    # the partial rows the combine reads serially
+    by_chunk = {c: cuda_ms(lambda: ops.launch_kernel(
+        values, plan, plan.order, chunk=c), 3) for c in (256, 4096)}
+    whole_ms = cuda_ms(lambda: ops.launch_kernel(values, plan, plan.order,
+                                                 chunk=e))
+    lib = lambda: torch.zeros((n, d), device=DEVICE).index_add_(0, seg,
+                                                                values)
+    lib()
+    lib_ms = cuda_ms(lib, 5)
+    rows = int((seg == hot).sum())
+    log(f"[kernel-vs-plain] segment_spmm hot segment: {e} x {d} f32 into "
+        f"{n} segments, {rows} rows in one; == plain in float64 (max abs "
+        f"err {err}; the fp32 plain version's own is {err32}); split "
+        f"{split_ms:.4f} ms, unsplit {whole_ms:.4f} ms "
+        f"({whole_ms / split_ms:.1f}x), index_add_ {lib_ms:.4f} ms; split "
+        f"at chunk {ops.CHUNK_ROWS} (the wrapper's) and "
+        + ", ".join(f"{c} {ms:.4f} ms" for c, ms in by_chunk.items()))
+    bound("segment_spmm hot segment (split)", e * d * 4 + 2 * e * 4
+          + (n + 1) * 8 + n * d * 4, e * d, split_ms, rate=FP32_RATE,
+          unit="fp32")
+    del values, seg, plan, got, again, want, plain32
+    torch.cuda.empty_cache()
+    return err
 
 
 def check_bag_shapes() -> float:
@@ -526,37 +743,66 @@ def check_bag_shapes() -> float:
     return errs["float32"]
 
 
-def time_spmm(label, values, ids, n, mask, bound, reps):
-    """B4 alone on the wrapper's sorted rows, the wrapper (sort and
-    kernel), the plain version and ``index_add_``: ``(ms, plain_ms,
-    bound_ms, bound_by, library_ms)``."""
+def spmm_layer(label, h, g, n, bound, reps, per_forward):
+    """B4 on one gin-tu layer's aggregation, the gather fused (rows
+    ``plan.compose(src)`` of ``h``) and not (``rows = order`` over the
+    materialised ``h[src]``): bitwise the same, and the same in two
+    launches, and equal to the plain version; then timed beside the plan
+    build, the gather, the plain version and ``index_add_``.  Logs the
+    per-forward times for ``per_forward`` aggregations, the fused and the
+    unfused bound, and the rate of the rows the fused kernel gathers.
+    Returns ``(err, (ms, plain_ms, bound_ms, bound_by, library_ms))``."""
     import torch
     from repro_torch.kernels.segment_spmm import ops, ref
 
-    sorted_ids, order = ops.sort_rows(ids, n, mask)
-    d = values.shape[1]
+    src, dst, mask = g["edge_src"], g["edge_dst"], g["edge_mask"]
+    plan = ops.plan(dst, n, mask)
+    rows = plan.compose(src)
+    fused = ops.segment_sum(h, plan, rows)
+    again = ops.segment_sum(h, plan, rows)
+    msg = h[src.long()]
+    unfused = ops.segment_sum(msg, plan)
+    torch.cuda.synchronize()
+    if not (torch.equal(fused, again) and torch.equal(fused, unfused)):
+        raise SystemExit(f"{label}: the fused and unfused sums, or two "
+                         "launches, differ")
+    err = hold(f"{label} vs plain", fused,
+               ref.scatter_sum(msg, dst, n, mask), *TOL_SPMM["float32"])
+    del fused, again, unfused
+    d = h.shape[1]
     fns = {
-        "kernel": lambda: ops.launch_kernel(values, sorted_ids, order, n),
-        "wrapper": lambda: ops.scatter_sum(values, ids, n, mask),
-        "plain": lambda: ref.scatter_sum(values, ids, n, mask),
+        "plan": lambda: ops.plan(dst, n, mask),
+        "fused": lambda: ops.launch_kernel(h, plan, rows),
+        "unfused": lambda: ops.launch_kernel(msg, plan, plan.order),
+        "gather": lambda: h[src.long()],
+        "plain": lambda: ref.segment_sum(h, rows, plan.sorted_ids, n),
         "index_add_": lambda: torch.zeros(
-            (n, d), dtype=values.dtype, device=DEVICE).index_add_(
-                0, ids, values),
+            (n, d), dtype=h.dtype, device=DEVICE).index_add_(0, dst, msg),
     }
     ms = {}
     for name, fn in fns.items():
         fn()
         ms[name] = cuda_ms(fn, reps)
-    kept = int((sorted_ids < n).sum())
-    size = values.element_size()
-    n_bytes = (values.numel() * size + ids.numel() * 4 + n * d * size
-               + (mask.numel() if mask is not None else 0))
-    b_ms, by = bound(label, n_bytes, kept * d, ms["kernel"], rate=FP32_RATE,
-                     unit="fp32")
-    log(f"[gnn] {label}: kernel {ms['kernel']:.4f} ms, wrapper (sort + "
-        f"kernel) {ms['wrapper']:.4f} ms, plain {ms['plain']:.4f} ms, "
-        f"index_add_ {ms['index_add_']:.4f} ms (means of {reps})")
-    return ms["kernel"], ms["plain"], b_ms, by, ms["index_add_"]
+    kept = int(plan.offsets[-1])
+    e = dst.numel()
+    gathered = kept * d * h.element_size()
+    b_ms, by = bound(f"{label} fused (h once)", h.numel() * h.element_size()
+                     + 2 * e * 4 + (n + 1) * 8 + n * d * h.element_size(),
+                     kept * d, ms["fused"], rate=FP32_RATE, unit="fp32")
+    bound(f"{label} unfused (today's count: messages once)",
+          msg.numel() * msg.element_size() + e * 4 + mask.numel()
+          + n * d * msg.element_size(), kept * d, ms["unfused"],
+          rate=FP32_RATE, unit="fp32")
+    log(f"[gnn] {label}: fused kernel {ms['fused']:.4f} ms (gathers "
+        f"{gathered} bytes of h rows, {gathered / ms['fused'] / 1e6:.0f} "
+        f"GB/s), unfused {ms['unfused']:.4f} ms, plan build "
+        f"{ms['plan']:.4f} ms, h[src] gather {ms['gather']:.4f} ms, plain "
+        f"{ms['plain']:.4f} ms, index_add_ {ms['index_add_']:.4f} ms "
+        f"(means of {reps}); per forward of {per_forward} aggregations: "
+        f"plan + kernels {ms['plan'] + per_forward * ms['fused']:.4f} ms, "
+        f"index_add_ {per_forward * ms['index_add_']:.4f} ms (+ gathers "
+        f"{per_forward * ms['gather']:.4f} ms)")
+    return err, (ms["fused"], ms["plain"], b_ms, by, ms["index_add_"])
 
 
 def gnn_minibatch(bound):
@@ -564,6 +810,7 @@ def gnn_minibatch(bound):
     launches in the counted runs, its largest error on the layers' real
     inputs and its timing on gin-tu's first aggregation."""
     import torch
+    import torch.nn.functional as F
     from repro_torch import configs
     from repro_torch.configs.gnn_common import _specialize
     from repro_torch.data.graph_data import random_graph_batch
@@ -588,22 +835,30 @@ def gnn_minibatch(bound):
         # B4 on the first aggregation input of each width, recorded on a
         # warm-up forward
         firsts = {}
-        for args in record_calls(ops, "scatter_sum",
+        for args in record_calls(ops, "segment_sum",
                                  lambda: gnn.forward(p, g, cfg)):
             firsts.setdefault(args[0].shape[1], args)
-        for d, args in firsts.items():
-            got = ops.scatter_sum(*args)
+        for d, (values, plan, *rows) in firsts.items():
+            rows = rows[0] if rows and rows[0] is not None else plan.order
+            got = ops.segment_sum(values, plan, rows)
+            again = ops.segment_sum(values, plan, rows)
             torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise SystemExit(f"segment_spmm {name}: two launches differ")
             e = hold(f"segment_spmm {name} layer input D={d}", got,
-                     ref.scatter_sum(*args), *TOL_SPMM["float32"])
+                     ref.segment_sum(values, rows, plan.sorted_ids,
+                                     plan.num_segments),
+                     *TOL_SPMM["float32"])
             err = max(err, e)
             log(f"[gnn] {name}: B4 on the first aggregation input "
-                f"[{args[0].shape[0]}, {d}] == plain, max abs err {e}")
+                f"[{values.shape[0]}, {d}] (rows {rows.shape[0]}) == plain, "
+                f"max abs err {e}, bitwise the same in two launches")
         want = gnn.forward(tree_to(p, "cpu"), g_cpu, cfg)
         (out, times), _, counts = run_counted(
             f"{name} minibatch_lg x{TIMED_RUNS}",
             lambda: timed_runs_of(lambda: gnn.forward(p, g, cfg)),
-            {"segment_spmm": per_forward * TIMED_RUNS})
+            {"segment_spmm": per_forward * TIMED_RUNS,
+             "segment_plan": TIMED_RUNS})
         launches += counts["segment_spmm"]
         e = hold(f"{name} forward on the card vs the CPU", out.cpu(), want,
                  *scaled_tol(want, GNN_TOL))
@@ -612,26 +867,30 @@ def gnn_minibatch(bound):
             f"|logits| <= {float(want.abs().max()):.3f}); ms per forward "
             + ", ".join(f"{t * 1e3:.3f}" for t in times) + f"; edges/s "
             f"best {shape.n_edges / min(times):.0f}; "
-            f"{per_forward} B4 launches per forward")
+            f"{per_forward} B4 launches and 1 segment plan per forward")
         profiled("gnn", f"{name} minibatch_lg forward",
                  lambda: gnn.forward(p, g, cfg))
         if name == "gin-tu":
-            timing = time_spmm("segment_spmm gin-tu minibatch_lg layer 1",
-                               *firsts[cfg.d_hidden], bound, KERNEL_REPS)
+            h = F.relu(g["node_feat"] @ p["w_in"] + p["b_in"])
+            e, timing = spmm_layer("segment_spmm gin-tu minibatch_lg layer 1",
+                                   h, g, shape.n_nodes, bound, KERNEL_REPS,
+                                   per_forward)
+            err = max(err, e)
+            del h
         del p, firsts, out, want
     return launches, err, timing
 
 
 def gnn_ogb_products(bound):
     """gin-tu at full width on ``ogb_products``: B4 on the first layer's
-    aggregation against its plain version, then one counted forward with
-    its peak device memory.  Returns B4's launches and error."""
+    aggregation, fused and not, against its plain version, then one
+    counted forward (no ``[E, D]`` message tensor) with its peak device
+    memory.  Returns B4's launches and error."""
     import torch
     import torch.nn.functional as F
     from repro_torch import configs
     from repro_torch.configs.gnn_common import _specialize, padded_sizes
     from repro_torch.data.graph_data import random_graph_batch
-    from repro_torch.kernels.segment_spmm import ops, ref
     from repro_torch.models import gnn
     from repro_torch.models.params import tree_init
 
@@ -650,32 +909,38 @@ def gnn_ogb_products(bound):
     p = tree_init(gnn.gnn_param_specs(cfg), generator=torch.Generator(
         device=DEVICE).manual_seed(0), device=DEVICE)
     h = F.relu(g["node_feat"] @ p["w_in"] + p["b_in"])
-    msg = h[g["edge_src"].long()]
-    args = (msg, g["edge_dst"], n_pad, g["edge_mask"])
-    got = ops.scatter_sum(*args)
+    err, _ = spmm_layer("segment_spmm gin-tu ogb_products layer 1", h, g,
+                        n_pad, bound, 3, cfg.n_layers)
+    # the materialised h[src] of the check is freed before the peak; one
+    # warm-up forward takes the allocator's first allocations out of the
+    # timed one
+    del h
     torch.cuda.synchronize()
-    err = hold("segment_spmm gin-tu ogb_products layer 1", got,
-               ref.scatter_sum(*args), *TOL_SPMM["float32"])
-    del got
-    log(f"[gnn] ogb_products: B4 on the first aggregation input "
-        f"[{e_pad}, {cfg.d_hidden}] == plain, max abs err {err}")
-    time_spmm("segment_spmm gin-tu ogb_products layer 1", *args, bound, 3)
-    del h, msg, args
+    torch.cuda.empty_cache()
+    gnn.forward(p, g, cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     out, dt, counts = run_counted("gin-tu ogb_products forward",
                                   lambda: gnn.forward(p, g, cfg),
-                                  {"segment_spmm": cfg.n_layers})
+                                  {"segment_spmm": cfg.n_layers,
+                                   "segment_plan": 1})
     if out.shape != (n_pad, shape.n_classes) or not bool(
             torch.isfinite(out).all()):
         raise SystemExit("gin-tu ogb_products: logits not finite or of "
                          f"shape {tuple(out.shape)}")
+    peak = torch.cuda.max_memory_allocated()
+    msg_bytes = e_pad * cfg.d_hidden * 4
+    if peak - held >= msg_bytes:
+        raise SystemExit(f"gin-tu ogb_products: the forward took {peak - held}"
+                         f" bytes, room for an [E, D] message tensor "
+                         f"({msg_bytes})")
     log(f"[gnn] gin-tu ogb_products: one forward {dt * 1e3:.1f} ms "
         f"({e_pad / dt:.0f} edges/s), finite [{n_pad}, "
         f"{shape.n_classes}] logits; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, of which "
-        f"{held / 1e9:.2f} GB graph and params")
+        f"{peak / 1e9:.2f} GB, of which {held / 1e9:.2f} GB graph and "
+        f"params (an [E, D] message tensor would be {msg_bytes / 1e9:.2f} "
+        f"GB)")
     del out
     profiled("gnn", "gin-tu ogb_products forward",
              lambda: gnn.forward(p, g, cfg))
@@ -890,6 +1155,12 @@ def main() -> int:
                 check_flat(label, fl, delta=d, l_max=lm, with_ts=with_ts)
         for b in lay.buckets:
             check_dense(f"{label} bucket {b.label}", b, delta=d, l_max=lm)
+    log(f"[kernel-vs-plain] adversarial rows for the dense kernel's hybrid "
+        f"sweep (W={SOLO_SLOTS}): both variants at delta=1000")
+    adversarial = adversarial_rows(SOLO_SLOTS)
+    for lm in (6, 3):
+        check_dense(f"adversarial rows l_max={lm}", adversarial, delta=1000,
+                    l_max=lm)
 
     gen, _ = synthetic_graphs.DATASET_ANALOGS["email-eu-like"]
     graph = gen(n_edges=FULL_EDGES, n_nodes=FULL_NODES, seed=0)
@@ -952,13 +1223,23 @@ def main() -> int:
     # shape its JSON entry reports
     largest = max(layout.buckets, key=lambda b: b.u.size)
     total_ms = dict.fromkeys((False, True), 0.0)
+    for with_ts in (False, True):
+        threads, per_sm = ops.dense_occupancy(lm, with_ts)
+        resident = props.multi_processor_count * per_sm * threads
+        log(f"[occupancy] {VARIANT_DENSE[with_ts]} l_max={lm}: {threads} "
+            f"threads per block, {per_sm} blocks per SM, {resident} lanes "
+            f"resident; waves per bucket " + ", ".join(
+                f"{b.label} {b.u.size / resident:.2f}"
+                for b in layout.buckets))
     for b in layout.buckets:
         if b is largest:
             args, plain_s, err = check_dense(
                 f"full-size bucket {b.label}", b, delta=d, l_max=lm)
         else:
             args = batch_tensors(b, DEVICE)
-        n_steps = dense_live_steps(args, delta=d, l_max=lm)
+        lane_steps = dense_lane_steps(args, delta=d, l_max=lm)
+        n_steps = int(lane_steps.sum())
+        sweep_counts(f"bucket {b.label}", lane_steps)
         for with_ts in (False, True):
             name = VARIANT_DENSE[with_ts]
             ms = cuda_ms(lambda: ops.launch_zone_kernel(
@@ -1034,7 +1315,9 @@ def main() -> int:
     seq_args = batch_tensors(seq_b, DEVICE)
     seq_ms = cuda_ms(lambda: ops.launch_zone_kernel(
         *seq_args, delta=d, l_max=lm), reps=3)
-    seq_steps = dense_live_steps(seq_args, delta=d, l_max=lm)
+    lane_steps = dense_lane_steps(seq_args, delta=d, l_max=lm)
+    seq_steps = int(lane_steps.sum())
+    sweep_counts("sequential (one zone)", lane_steps)
     bound("zone_scan_dense (sequential, one zone)",
           (4 + limbs + 1) * 4 * seq_b.u.size,
           seq_steps * (OPS_FIXED_DENSE + OPS_PER_NODE * (lm + 1)), seq_ms)
@@ -1142,7 +1425,7 @@ def main() -> int:
 
     # -- 8. model-zoo kernels vs plain ----------------------------------
     t_phase = time.perf_counter()
-    errs["segment_spmm"] = check_spmm_shapes()
+    errs["segment_spmm"] = max(check_spmm_shapes(), spmm_hot_segment(bound))
     errs["embedding_bag"] = check_bag_shapes()
     log(f"[kernel-vs-plain] model zoo phase "
         f"{time.perf_counter() - t_phase:.1f}s")
@@ -1191,6 +1474,7 @@ def main() -> int:
             "library_ms": library[0] if library else None,
         })
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
+    log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -2,22 +2,27 @@
 
 ``csrc/segment_spmm.cu`` replaces the TPU kernel
 ``scatter_sum_sorted_pallas`` of the JAX package.  Like the JAX wrapper,
-:func:`scatter_sum` gives every masked or out-of-range row the sentinel id
-``num_segments``, takes a stable argsort by id and launches the kernel over
-the sorted rows.  It neither zeroes the masked rows nor materialises a
-sorted copy of the values: the kernel reads each row through the
-permutation and never reads a sentinel row.
+:func:`plan` gives every masked or out-of-range row the sentinel id
+``num_segments`` and takes a stable argsort by id; it does so once per
+graph, and every :func:`segment_sum` over the same destinations reuses the
+plan.  The kernel reads each row through a row index — the plan's
+permutation for per-edge values, or the permutation composed with the edge
+sources (:meth:`SegmentPlan.compose`) to sum ``h[src]`` straight from the
+node rows of ``h`` — so neither a sorted copy of the values nor the
+``[E, D]`` gathered messages are made.
 
 For CUDA tensors the wrapper launches the kernel on PyTorch's current
 stream (built with ``nvcc`` at first use, see :mod:`.._build`) or raises;
 for CPU tensors — the tests' only device — it runs the plain version
-:func:`.ref.scatter_sum`.  :data:`launches` counts kernel launches and
-nothing else.
+(:mod:`.ref`).  :data:`launches` counts launches of the sum kernel and
+nothing else; :data:`plans` counts plans built, on any device (on CUDA
+each one launches the kernel's bounds pass).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from pathlib import Path
 
 import torch
@@ -28,81 +33,184 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "segment_spmm.cu"
 
 #: kernel launches since the last :func:`reset_launches`
 launches = {"segment_spmm": 0}
+#: segment plans built since the last :func:`reset_launches`
+plans = {"segment_plan": 0}
 
 #: value dtypes the kernel takes -> its dtype code
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: sorted positions per chunk: a segment with more runs on one warp per
+#: chunk, and its fp32 partial sums are added in a second pass
+CHUNK_ROWS = 1024
+_INT32_MAX = 2**31 - 1
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    "segment_bounds": [_P, _L, _I, _P, _P],
+    "segment_spmm": [_P] * 6 + [_L, _I, _I, _L, _I, _I, _P],
+}
 _fns: dict[str, object] = {}
 
 
 def reset_launches() -> None:
     launches["segment_spmm"] = 0
+    plans["segment_plan"] = 0
 
 
-def _kernel():
-    fn = _fns.get("segment_spmm")
+def _kernel(name: str):
+    fn = _fns.get(name)
     if fn is None:
         from repro_torch.kernels import _build
 
-        fn = _build.load(SOURCE).segment_spmm
+        fn = getattr(_build.load(SOURCE), name)
         fn.restype = ctypes.c_int
-        fn.argtypes = [_P] * 5 + [_L, _I, _I, _I, _P]
-        _fns["segment_spmm"] = fn
+        fn.argtypes = _SIGNATURES[name]
+        _fns[name] = fn
     return fn
 
 
-def sort_rows(segment_ids, num_segments: int, mask=None):
-    """``(sorted_ids int32[E], order int64[E])``: the ids with dropped rows
-    at the sentinel ``num_segments``, stably sorted, and the permutation
-    that sorts them."""
+def _call(name: str, device, *args) -> None:
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _kernel(name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+
+
+@dataclasses.dataclass(frozen=True)
+class SegmentPlan:
+    """One stable sort of a graph's destination ids, shared by every
+    aggregation over them.
+
+    ``sorted_ids int32[E]``: the kept ids ascending, dropped rows at the
+    sentinel ``num_segments`` (last); ``order int32[E]``: the stable
+    permutation that sorts them; ``offsets int64[N + 1]``: segment ``s``
+    is sorted positions ``[offsets[s], offsets[s + 1])``.
+    """
+
+    sorted_ids: torch.Tensor
+    order: torch.Tensor
+    offsets: torch.Tensor
+    num_segments: int
+
+    def compose(self, index):
+        """``index[order]`` as int32: the row index that reads
+        ``values[index[e]]`` for each edge ``e`` in the plan's sorted
+        order (``index`` the edge sources: sum ``h[src]`` from ``h``)."""
+        if index.shape != self.order.shape:
+            raise ValueError(f"index has shape {tuple(index.shape)}, "
+                             f"expected {tuple(self.order.shape)}")
+        return index.to(torch.int32).index_select(0, self.order)
+
+
+def plan(segment_ids, num_segments: int, mask=None) -> SegmentPlan:
+    """Sort ``segment_ids [E]`` (masked and out-of-range rows to the
+    sentinel) once, for every :func:`segment_sum` over them.
+
+    On CUDA the offsets come from the kernel's bounds pass, on the CPU
+    from ``torch.searchsorted``; the stable sort is ``torch.sort`` (the
+    JAX wrapper's ``jnp.argsort``, which lies outside the TPU kernel too).
+    """
+    if segment_ids.dim() != 1:
+        raise ValueError(f"segment_ids has shape {tuple(segment_ids.shape)}"
+                         ", expected [E]")
+    if mask is not None and mask.shape != segment_ids.shape:
+        raise ValueError(f"mask has shape {tuple(mask.shape)}, "
+                         f"expected {tuple(segment_ids.shape)}")
+    if not 0 <= num_segments < _INT32_MAX:
+        raise ValueError(f"num_segments {num_segments} outside "
+                         f"[0, {_INT32_MAX})")
+    if segment_ids.shape[0] > _INT32_MAX:
+        raise ValueError("more than 2^31 - 1 rows")
+    dev = segment_ids.device
     ids = ref.kept_ids(segment_ids.to(torch.int32), num_segments, mask)
-    return torch.sort(ids, stable=True)
+    sorted_ids, order = torch.sort(ids, stable=True)
+    order = order.to(torch.int32)
+    if dev.type == "cuda":
+        offsets = torch.empty(num_segments + 1, dtype=torch.int64,
+                              device=dev)
+        _call("segment_bounds", dev, sorted_ids.data_ptr(),
+              sorted_ids.shape[0], num_segments, offsets.data_ptr())
+    elif dev.type == "cpu":
+        offsets = torch.searchsorted(
+            sorted_ids, torch.arange(num_segments + 1, dtype=torch.int32))
+    else:
+        raise ValueError(f"unsupported device {dev}")
+    plans["segment_plan"] += 1
+    return SegmentPlan(sorted_ids, order, offsets, num_segments)
 
 
-def launch_kernel(values, sorted_ids, order, num_segments: int):
+def launch_kernel(values, seg_plan: SegmentPlan, rows,
+                  chunk: int = CHUNK_ROWS):
     """Launch B4 on CUDA tensors; raises on anything else.
 
-    Row ``order[r]`` of ``values [E, D]`` (f32 or bf16) is summed into
-    segment ``sorted_ids[r]``; ``sorted_ids`` (int32) must be ascending
-    and ``order`` a permutation of the rows, as :func:`sort_rows` gives
-    them.  Rows with an id outside ``[0, num_segments)``, such as the
-    sentinel ``num_segments``, are dropped.  Returns ``[num_segments, D]``
-    in the values' dtype.
+    Sorted position ``r`` adds row ``rows[r]`` (int32, each in ``[0, R)``)
+    of ``values [R, D]`` (f32 or bf16) into segment
+    ``seg_plan.sorted_ids[r]``; positions at the sentinel are dropped.
+    Segments longer than ``chunk`` positions are split into chunks.
+    Returns ``[num_segments, D]`` in the values' dtype.
     """
     if not values.is_cuda:
         raise ValueError("the segment scatter-sum kernel needs CUDA tensors")
     if values.dtype not in DTYPES:
         raise TypeError(f"values has dtype {values.dtype}, expected one of "
                         f"{list(DTYPES)}")
-    ref.check_inputs(values, sorted_ids, num_segments)
-    if order.shape != sorted_ids.shape:
-        raise ValueError(f"order has shape {tuple(order.shape)}, expected "
-                         f"{tuple(sorted_ids.shape)}")
-    for name, x, dtype in (("sorted_ids", sorted_ids, torch.int32),
-                           ("order", order, torch.int64)):
+    if values.dim() != 2:
+        raise ValueError(f"values has shape {tuple(values.shape)}, "
+                         "expected [R, D]")
+    if chunk < 1:
+        raise ValueError("chunk must be >= 1")
+    n_pos = seg_plan.order.shape[0]
+    if rows.shape != (n_pos,):
+        raise ValueError(f"rows has shape {tuple(rows.shape)}, expected "
+                         f"({n_pos},)")
+    for name, x, dtype in (("rows", rows, torch.int32),
+                           ("sorted_ids", seg_plan.sorted_ids, torch.int32),
+                           ("offsets", seg_plan.offsets, torch.int64)):
         if x.device != values.device:
             raise ValueError(f"{name} is on {x.device}, expected "
                              f"{values.device} like values")
         if x.dtype != dtype:
             raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
-    values, sorted_ids, order = (x.contiguous()
-                                 for x in (values, sorted_ids, order))
-    e, d = values.shape
+    values, rows = values.contiguous(), rows.contiguous()
+    d = values.shape[1]
+    n = seg_plan.num_segments
     dev = values.device
-    offsets = torch.empty(num_segments + 1, dtype=torch.int64, device=dev)
-    out = torch.empty((num_segments, d), dtype=values.dtype, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _kernel()(values.data_ptr(), sorted_ids.data_ptr(),
-                        order.data_ptr(), offsets.data_ptr(),
-                        out.data_ptr(), e, d, num_segments,
-                        DTYPES[values.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"segment_spmm launch failed with CUDA error "
-                           f"{err}")
+    vec = (d % (16 // values.element_size()) == 0
+           and values.data_ptr() % 16 == 0)
+    n_chunks = -(-n_pos // chunk)
+    partial = torch.empty((2 * n_chunks, d), dtype=torch.float32, device=dev)
+    out = torch.empty((n, d), dtype=values.dtype, device=dev)
+    _call("segment_spmm", dev, values.data_ptr(), rows.data_ptr(),
+          seg_plan.sorted_ids.data_ptr(), seg_plan.offsets.data_ptr(),
+          partial.data_ptr(), out.data_ptr(), n_pos, d, n, chunk,
+          DTYPES[values.dtype], int(vec))
     launches["segment_spmm"] += 1
     return out
+
+
+def segment_sum(values, seg_plan: SegmentPlan, rows=None):
+    """``out[s] = sum of values[rows[r]]`` over the sorted positions ``r``
+    of segment ``s``, accumulated in fp32.
+
+    Args:
+      values: ``[R, D]`` f32 or bf16; seg_plan: from :func:`plan`;
+      rows: int32 ``[E]`` row index per sorted position, default the
+        plan's permutation (``values`` per edge, ``R = E``); use
+        ``seg_plan.compose(src)`` to sum ``h[src]`` with ``values = h``.
+    Returns:
+      ``[num_segments, D]`` in the values' dtype.  CUDA tensors go to the
+      kernel, CPU tensors to its plain version.
+    """
+    rows = seg_plan.order if rows is None else rows
+    if rows.shape != seg_plan.order.shape:
+        raise ValueError(f"rows has shape {tuple(rows.shape)}, expected "
+                         f"{tuple(seg_plan.order.shape)}")
+    if values.is_cuda:
+        return launch_kernel(values, seg_plan, rows)
+    if values.device.type != "cpu":
+        raise ValueError(f"unsupported device {values.device}")
+    return ref.segment_sum(values, rows, seg_plan.sorted_ids,
+                           seg_plan.num_segments)
 
 
 def scatter_sum(values, segment_ids, num_segments: int, mask=None):
@@ -114,13 +222,7 @@ def scatter_sum(values, segment_ids, num_segments: int, mask=None):
     Returns:
       ``[num_segments, D]`` in the values' dtype: each segment's sum of its
       unmasked rows, accumulated in fp32; ids outside
-      ``[0, num_segments)`` are dropped.  CUDA tensors go to the kernel,
-      CPU tensors to its plain version.
+      ``[0, num_segments)`` are dropped.  Builds its own :func:`plan`.
     """
     ref.check_inputs(values, segment_ids, num_segments, mask)
-    if values.is_cuda:
-        sorted_ids, order = sort_rows(segment_ids, num_segments, mask)
-        return launch_kernel(values, sorted_ids, order, num_segments)
-    if values.device.type != "cpu":
-        raise ValueError(f"unsupported device {values.device}")
-    return ref.scatter_sum(values, segment_ids, num_segments, mask)
+    return segment_sum(values, plan(segment_ids, num_segments, mask))

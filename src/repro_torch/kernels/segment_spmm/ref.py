@@ -36,15 +36,34 @@ def kept_ids(segment_ids, num_segments: int, mask=None):
     return torch.where(keep, segment_ids, num_segments)
 
 
-def scatter_sum(values, segment_ids, num_segments: int, mask=None):
+def scatter_sum(values, segment_ids, num_segments: int, mask=None, *,
+                acc_dtype=torch.float32):
     """Sum rows of ``values [E, D]`` into ``num_segments`` rows.
 
-    Masked-out and out-of-range rows go to one extra fp32 row that is cut
-    off (``index_add_`` into a buffer of ``num_segments + 1`` rows).
+    Masked-out and out-of-range rows go to one extra row that is cut off
+    (``index_add_`` into a buffer of ``num_segments + 1`` rows of
+    ``acc_dtype``, fp32 as the kernel accumulates).
     """
     check_inputs(values, segment_ids, num_segments, mask)
     ids = kept_ids(segment_ids.long(), num_segments, mask)
+    out = torch.zeros((num_segments + 1, values.shape[1]), dtype=acc_dtype,
+                      device=values.device)
+    out.index_add_(0, ids, values.to(acc_dtype))
+    return out[:num_segments].to(values.dtype)
+
+
+def segment_sum(values, rows, sorted_ids, num_segments: int):
+    """Sum ``values[rows[r]]`` into segment ``sorted_ids[r]`` for every
+    sorted position ``r`` (the kernel's contract over a segment plan):
+    ``index_add_`` into fp32, positions with an id outside
+    ``[0, num_segments)`` dropped.  With ``rows`` the plan's stable
+    permutation each segment adds its rows in input order, as
+    :func:`scatter_sum` does."""
+    if values.dim() != 2:
+        raise ValueError(f"values has shape {tuple(values.shape)}, "
+                         "expected [R, D]")
+    ids = kept_ids(sorted_ids.long(), num_segments)
     out = torch.zeros((num_segments + 1, values.shape[1]),
                       dtype=torch.float32, device=values.device)
-    out.index_add_(0, ids, values.float())
+    out.index_add_(0, ids, values[rows.long()].float())
     return out[:num_segments].to(values.dtype)

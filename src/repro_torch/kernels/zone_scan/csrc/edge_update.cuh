@@ -25,9 +25,12 @@
 // seed; a lane that is never seeded keeps zeros.  The array is written in
 // the same unrolled, predicated way, so it stays in registers too.
 //
-// sweep_row() is the one row sweep of every zone-scan kernel: a seeded
-// lane reads the later slots of its own zone row and stops at the row's
-// end or as soon as no later slot can change its outputs.
+// sweep_row() is the per-lane row sweep of the flat kernel: a seeded lane
+// reads the later slots of its own zone row and stops at the row's end or
+// as soon as no later slot can change its outputs.  sweep_row_warp() is
+// the same sweep for a whole warp of lanes (the dense kernel): each lane
+// sweeps at most W slots on its own, then the warp finishes the lanes left
+// open one at a time, 32 slots per step.
 
 #pragma once
 
@@ -175,6 +178,107 @@ __device__ __forceinline__ void sweep_row(
     if (zone_id != nullptr && zone_id[j] != zid) break;
     if (!valid[j]) continue;
     if (!s.update(u[j], v[j], t[j], true, delta)) break;
+  }
+}
+
+// True when edge (u, v, t) of a valid slot changes an open lane (active,
+// length < LMAX): it times it out (t - last_t > delta) or extends it
+// (0 < t - last_t <= delta and u or v already in its node table).  Any
+// other slot — ties and earlier times included — leaves every output and
+// `done` as they are under update(), so a sweep may jump from event to
+// event.
+template <int LMAX, bool WITH_TS>
+__device__ __forceinline__ bool is_event(const LaneState<LMAX, WITH_TS>& s,
+                                         int u, int v, int t, int delta) {
+  const int gap = t - s.last_t;
+  bool hit = false;
+#pragma unroll
+  for (int i = 0; i < LMAX + 1; ++i)
+    hit |= (s.nodes[i] == u) | (s.nodes[i] == v);
+  return gap > delta || (t > s.last_t && gap <= delta && hit);
+}
+
+// Copy lane `src`'s state into every lane's `c` (compile-time indices
+// only, so the arrays stay in registers).
+template <int LMAX, bool WITH_TS>
+__device__ __forceinline__ void broadcast(LaneState<LMAX, WITH_TS>& c,
+                                          const LaneState<LMAX, WITH_TS>& s,
+                                          int src) {
+  constexpr unsigned kAll = 0xffffffffu;
+  c.length = __shfl_sync(kAll, s.length, src);
+  c.last_t = __shfl_sync(kAll, s.last_t, src);
+  c.done = __shfl_sync(kAll, static_cast<int>(s.done), src) != 0;
+  c.n_nodes = __shfl_sync(kAll, s.n_nodes, src);
+#pragma unroll
+  for (int i = 0; i < LMAX + 1; ++i)
+    c.nodes[i] = __shfl_sync(kAll, s.nodes[i], src);
+#pragma unroll
+  for (int m = 0; m < LaneState<LMAX, WITH_TS>::L; ++m)
+    c.code[m] = __shfl_sync(kAll, s.code[m], src);
+  if constexpr (WITH_TS) {
+#pragma unroll
+    for (int i = 0; i < LMAX; ++i) c.ts[i] = __shfl_sync(kAll, s.ts[i], src);
+  }
+}
+
+// The sweep of sweep_row() for the 32 lanes of a warp, which must all call
+// it (converged).  A lane with `live` set is seeded and sweeps slots
+// [begin, end) of its row (absolute indices into u, v, t, valid); the
+// others only help.  Phase 1: each live lane applies at most W slots on
+// its own, as sweep_row() does.  Phase 2: the lanes still open (not timed
+// out, not full, slots left) are finished one at a time, in lane order: the
+// warp holds a copy of the lane's state, each lane tests one of the next 32
+// slots for an event (is_event), and the first event in slot order
+// (__ballot_sync, __ffs) is applied by every lane to its copy; the search
+// goes on after it until a time-out, a full lane or the row end.  Slots
+// that are no event change nothing, so this is the sequential sweep, slot
+// for slot, whether or not the row is sorted by time.  Invalid slots are
+// no event.
+template <int W, int LMAX, bool WITH_TS>
+__device__ __forceinline__ void sweep_row_warp(
+    LaneState<LMAX, WITH_TS>& s, bool live, const int* __restrict__ u,
+    const int* __restrict__ v, const int* __restrict__ t,
+    const int* __restrict__ valid, long long begin, long long end,
+    int delta) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  bool open = live && s.length < LMAX;
+  long long j = begin;
+  const long long stop = min(end, begin + W);
+  for (; open && j < stop; ++j)
+    if (valid[j]) open = s.update(u[j], v[j], t[j], true, delta);
+  open = open && j < end;
+  unsigned pending = __ballot_sync(kAll, open);
+  while (pending) {
+    const int owner = __ffs(pending) - 1;
+    pending &= pending - 1;
+    LaneState<LMAX, WITH_TS> c;
+    broadcast(c, s, owner);
+    long long base = __shfl_sync(kAll, j, owner);
+    const long long row_end = __shfl_sync(kAll, end, owner);
+    bool going = true;
+    while (going && base < row_end) {
+      const long long k = base + lane;
+      int uk = 0, vk = 0, tk = 0;
+      bool event = false;
+      if (k < row_end && valid[k]) {
+        uk = u[k];
+        vk = v[k];
+        tk = t[k];
+        event = is_event(c, uk, vk, tk, delta);
+      }
+      const unsigned hits = __ballot_sync(kAll, event);
+      if (hits == 0) {
+        base += 32;
+        continue;
+      }
+      const int first = __ffs(hits) - 1;
+      going = c.update(__shfl_sync(kAll, uk, first),
+                       __shfl_sync(kAll, vk, first),
+                       __shfl_sync(kAll, tk, first), true, delta);
+      base += first + 1;
+    }
+    if (lane == owner) s = c;
   }
 }
 

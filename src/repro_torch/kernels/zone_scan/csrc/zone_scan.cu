@@ -16,24 +16,40 @@
 // Here blocks run in parallel with no carried state, so the shape is the
 // per-lane form of those skips:
 //
-// * one thread per (zone, slot) lane of the batch: grid ceil(Z*E / 256)
-//   blocks of 256 threads, one launch per batch;
+// * one thread per (zone, slot) lane of the batch: grid ceil(Z*E /
+//   kThreads) blocks, one launch per batch;
 // * a thread whose slot is invalid writes length 0 and all-zero code (and
 //   ts), exactly as the TPU kernel leaves a never-seeded lane;
 // * a valid lane seeds at its own slot and sweeps only the later slots of
 //   its own row (the index skip), stopping at the row's end or as soon as
 //   it timed out or holds l_max edges — after which no edge changes its
-//   outputs (the time skip, made exact per lane).  The sweep is
-//   ptmt::sweep_row, shared with the flat kernel fused_zone_scan.cu;
+//   outputs (the time skip, made exact per lane);
 // * no padding of E and no fill of pad times: invalid slots gate nothing.
 //
-// What bounds it on this card: integer operations and divergence, as for
-// the flat kernel (~2K compares for the node-table lookup plus the gap
-// test per visited slot; a warp runs as long as its longest lane).  The
-// bytes it must move are 4 int32 inputs and L + 1 (+ l_max with WITH_TS)
-// int32 outputs per slot.  Left on the table by this simple design:
-// staging the row in shared memory, and splitting long lanes across a
-// warp.
+// What bounds it on this card: integer operations, and the idle lanes of
+// a warp that runs as long as its longest lane.  Per visited slot a lane
+// does ~2K compares for the node-table lookup plus the gap test; the bytes
+// it must move are 4 int32 inputs and L + 1 (+ l_max with WITH_TS) int32
+// outputs per slot.  At the full-size configuration the median lane visits
+// 10 slots and the longest of a warp hundreds to thousands, so a warp of
+// lanes that each sweep their own row keeps ~10% of its lane-steps busy.
+// The row sweep is therefore ptmt::sweep_row_warp (edge_update.cuh): each
+// lane sweeps at most kSoloSlots slots on its own, then the whole warp
+// finishes the few lanes left open one at a time, 32 slots per step,
+// jumping from event to event (a time-out or an extension; other slots
+// change nothing), which is exact.  kSoloSlots = 32: at the full size 16
+// leaves 2.3x as many lanes open (53,527 of 289,856 in the largest bucket
+// against 22,794) for fewer warp-steps in all, but every open lane costs a
+// broadcast of its state, and a cooperative step (32 loads and a ballot)
+// costs more than a lone one (chip_smoke.py logs both counts; the two
+// were not timed against each other).  kThreads = 128, from the registers ptxas gives the two lane
+// states: at l_max 6 a thread takes 56 registers (70 with ts), so 9 (7)
+// blocks of 128 are resident per SM and the largest full-size bucket
+// (289,856 lanes) runs in 1.91 (2.45) waves; blocks of 256 fit 4 (3) per
+// SM and leave a third wave 14% (86%) full.  Smaller blocks also free
+// their slot as soon as their 4 warps end, which the unequal warps of the
+// cooperative sweep need (chip_smoke.py logs the resident blocks and waves
+// of every bucket).
 //
 // C interface (bound with ctypes):
 //   int zone_scan_dense(u, v, t, valid, code, length, ts, n_zones, e_cap,
@@ -42,6 +58,10 @@
 // ts [Z, E, l_max] outputs; returns cudaGetLastError() after the launch
 // (0 on success), or -1 for an l_max this build does not instantiate.  ts
 // is ignored (may be null) when with_ts is 0.
+//   int zone_scan_dense_occupancy(l_max, with_ts, threads, blocks_per_sm)
+// writes the block size and the resident blocks per SM of that
+// instantiation; returns cudaGetLastError() (0 on success), or -1 for an
+// l_max this build does not instantiate.
 
 #include <cuda_runtime.h>
 
@@ -49,7 +69,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;
+// slots a lane sweeps on its own before its warp finishes it
+constexpr int kSoloSlots = 32;
 
 template <int LMAX, bool WITH_TS>
 __global__ void __launch_bounds__(kThreads)
@@ -60,19 +82,16 @@ zone_scan_kernel(const int* __restrict__ u, const int* __restrict__ v,
                  int delta) {
   const long long q = static_cast<long long>(blockIdx.x) * blockDim.x
                       + threadIdx.x;
-  if (q >= n_lanes) return;
-  const long long row = q / e_cap * e_cap;  // first slot of the lane's zone
-  const int i = static_cast<int>(q - row);
+  // every lane of a warp takes part in its sweep, past the batch too
+  const bool in_batch = q < n_lanes;
+  const bool live = in_batch && valid[q] != 0;
+  const long long row_end = (in_batch ? q / e_cap + 1 : 0) * e_cap;
 
-  ptmt::LaneState<LMAX, WITH_TS> s;
-  if (!valid[q]) {
-    s.clear();
-  } else {
-    s.seed(u[q], v[q], t[q]);
-    ptmt::sweep_row(s, u + row, v + row, t + row, valid + row, nullptr, 0,
-                    i + 1, e_cap, delta);
-  }
-  s.store(q, code, length, ts);
+  ptmt::LaneState<LMAX, WITH_TS> s{};  // unseeded: all-zero outputs
+  if (live) s.seed(u[q], v[q], t[q]);
+  ptmt::sweep_row_warp<kSoloSlots>(s, live, u, v, t, valid, q + 1, row_end,
+                                   delta);
+  if (in_batch) s.store(q, code, length, ts);
 }
 
 template <int LMAX, bool WITH_TS>
@@ -110,4 +129,27 @@ extern "C" int zone_scan_dense(const int* u, const int* v, const int* t,
       return -1;
   }
 #undef PTMT_CASE
+}
+
+extern "C" int zone_scan_dense_occupancy(int l_max, int with_ts,
+                                         int* threads, int* blocks_per_sm) {
+  *threads = kThreads;
+#define PTMT_CASE(L)                                                        \
+  case L:                                                                   \
+    if (with_ts)                                                            \
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(                        \
+          blocks_per_sm, zone_scan_kernel<L, true>, kThreads, 0);           \
+    else                                                                    \
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(                        \
+          blocks_per_sm, zone_scan_kernel<L, false>, kThreads, 0);          \
+    break;
+  switch (l_max) {
+    PTMT_CASE(1) PTMT_CASE(2) PTMT_CASE(3) PTMT_CASE(4) PTMT_CASE(5)
+    PTMT_CASE(6) PTMT_CASE(7) PTMT_CASE(8) PTMT_CASE(9) PTMT_CASE(10)
+    PTMT_CASE(11) PTMT_CASE(12) PTMT_CASE(13) PTMT_CASE(14)
+    default:
+      return -1;
+  }
+#undef PTMT_CASE
+  return static_cast<int>(cudaGetLastError());
 }

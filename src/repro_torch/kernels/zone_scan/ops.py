@@ -47,6 +47,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "fused_zone_scan_flat": (FUSED_SOURCE, [_P] * 9 + [_I] * 5 + [_P]),
     "zone_scan_dense": (DENSE_SOURCE, [_P] * 7 + [_I] * 5 + [_P]),
+    "zone_scan_dense_occupancy": (DENSE_SOURCE, [_I, _I, _P, _P]),
 }
 _fns: dict[str, object] = {}
 
@@ -178,6 +179,18 @@ def launch_zone_kernel(u, v, t, valid, *, delta: int, l_max: int,
             int(l_max), int(with_ts))
     launches["zone_scan_dense_ts" if with_ts else "zone_scan_dense"] += 1
     return ZoneResult(code=code, length=length, ts=ts)
+
+
+def dense_occupancy(l_max: int, with_ts: bool = False) -> tuple[int, int]:
+    """``(threads per block, resident blocks per SM)`` of the dense
+    kernel's instantiation for ``l_max`` on the current CUDA device."""
+    threads, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    err = _kernel("zone_scan_dense_occupancy")(
+        int(l_max), int(with_ts), ctypes.byref(threads), ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"zone_scan_dense_occupancy failed with CUDA "
+                           f"error {err}")
+    return threads.value, blocks.value
 
 
 def scan_zones(u, v, t, valid, *, delta: int, l_max: int,

@@ -38,7 +38,7 @@ kernel's per-lane early exit:
 a lane ignores every later edge once ``done`` is set or ``length ==
 l_max`` — after either, no edge can change ``code`` or ``length`` (a
 time-out only sets ``done``, which the outputs never read), so the lane
-retires early.  Its outputs equal the unmasked sweep's; :func:`live_steps`
+retires early.  Its outputs equal the unmasked sweep's; :func:`lane_steps`
 counts the slots the masked sweep visits, which is the work one kernel
 thread per lane does.
 """
@@ -171,8 +171,9 @@ def lane_windows(zone_id, hi, *, blk: int) -> torch.Tensor:
 def _scan(u, v, t, valid, zone_id, lo, hi, *, delta, l_max, blk,
           early_exit, with_ts=False):
     """The sweep behind :func:`fused_zone_scan_torch` and
-    :func:`live_steps`; returns ``(code, length, ts, steps)`` (``ts`` is
-    None without ``with_ts``)."""
+    :func:`lane_steps`; returns ``(code, length, ts, steps)`` (``ts`` is
+    None without ``with_ts``; ``steps int64[S]``, the slots each lane
+    visits with ``early_exit``)."""
     check_flat_inputs(u, v, t, valid, zone_id, lo, hi, blk=blk)
     s_pad = u.shape[0]
     dev = u.device
@@ -186,7 +187,7 @@ def _scan(u, v, t, valid, zone_id, lo, hi, *, delta, l_max, blk,
     length = torch.zeros(s_pad, dtype=torch.int32, device=dev)
     ts = (torch.zeros((s_pad, l_max), dtype=torch.int32, device=dev)
           if with_ts else None)
-    steps = torch.zeros((), dtype=torch.int64, device=dev)
+    steps = torch.zeros(s_pad, dtype=torch.int64, device=dev)
 
     # only lanes that can seed (own slot valid, inside its window) sweep
     lanes = torch.nonzero(ok & (span > 0)).flatten()
@@ -197,6 +198,7 @@ def _scan(u, v, t, valid, zone_id, lo, hi, *, delta, l_max, blk,
     u_p, v_p, t_p = pad_i(u, 0), pad_i(v, 0), pad_i(t, 0)
     ok_p, zid_p = pad_i(ok, False), pad_i(zid, -1)
     l_zid = zid[lanes]
+    l_steps = torch.zeros(lanes.numel(), dtype=torch.int64, device=dev)
 
     n = lanes.numel()
     state = (
@@ -217,6 +219,7 @@ def _scan(u, v, t, valid, zone_id, lo, hi, *, delta, l_max, blk,
     def flush(sel):
         # a retired lane keeps the timestamps it had
         q = lanes[sel]
+        steps[q] = l_steps[sel]
         length[q] = state[0][sel]
         code[q] = state[5][:, sel].T
         if with_ts:
@@ -233,14 +236,14 @@ def _scan(u, v, t, valid, zone_id, lo, hi, *, delta, l_max, blk,
             if not bool(act.all()):
                 keep = act
                 flush(~keep)
-                lanes, l_span, l_zid, act = (x[keep] for x in (
-                    lanes, l_span, l_zid, act))
+                lanes, l_span, l_zid, l_steps, act = (x[keep] for x in (
+                    lanes, l_span, l_zid, l_steps, act))
                 state = tuple(x[..., keep] for x in state)
                 trip = int(l_span.max()) if lanes.numel() else 0
                 if j >= trip:
                     break
         if early_exit:
-            steps += act.sum()
+            l_steps += act
         idx = lanes + j
         evalid = act & ok_p[idx]
         state = _edge_update(
@@ -272,11 +275,20 @@ def fused_zone_scan_torch(u, v, t, valid, zone_id, lo, hi, *, delta: int,
     return (code, length, ts) if with_ts else (code, length)
 
 
+def lane_steps(u, v, t, valid, zone_id, lo, hi, *, delta: int, l_max: int,
+               blk: int = 512) -> torch.Tensor:
+    """Slots visited by the early-exit sweep of each lane, its seed slot
+    included (``int64[S]``, 0 for a lane that does not seed): the steps
+    one kernel thread per lane takes on these inputs."""
+    *_, steps = _scan(u, v, t, valid, zone_id, lo, hi, delta=delta,
+                      l_max=l_max, blk=blk, early_exit=True)
+    return steps
+
+
 def live_steps(u, v, t, valid, zone_id, lo, hi, *, delta: int, l_max: int,
                blk: int = 512) -> int:
     """Slots visited by the early-exit sweep, summed over lanes: the
     per-lane steps these inputs need (one kernel thread per lane visits
     exactly these)."""
-    *_, steps = _scan(u, v, t, valid, zone_id, lo, hi, delta=delta,
-                      l_max=l_max, blk=blk, early_exit=True)
-    return int(steps)
+    return int(lane_steps(u, v, t, valid, zone_id, lo, hi, delta=delta,
+                          l_max=l_max, blk=blk).sum())

@@ -1,12 +1,16 @@
 """GNN layers and models via edge-index scatter (segment ops).
 
 Message passing runs directly over an edge list: ``gather(src) -> edge
-MLP -> segment sum/max(dst)``.  The aggregation of every layer is
-:func:`_gather_agg`, which always calls the segment scatter-sum kernel's
-wrapper (:func:`repro_torch.kernels.segment_spmm.ops.scatter_sum`): the
-device of the tensors chooses between the kernel and its plain version.
-The other segment sums (the gcn degree, :func:`scatter_mean`, the graph
-readout) are ``index_add_``.
+MLP -> segment sum/max(dst)``.  Every layer aggregates through the segment
+scatter-sum kernel's wrapper
+(:func:`repro_torch.kernels.segment_spmm.ops.segment_sum`): :func:`forward`
+sorts the destinations once (one segment plan per graph and forward) and
+every aggregation of every layer reuses it.  gin and gcn sum ``h[src]``
+straight from the node rows (the plan's order composed with ``src``), so
+no ``[E, D]`` message tensor is made; gat and gatedgcn sum their per-edge
+messages.  The device of the tensors chooses between the kernel and its
+plain version.  The other segment sums (the gcn degree,
+:func:`scatter_mean`, the graph readout) are ``index_add_``.
 
 Graphs are padded, fixed-shape batches:
   node_feat [N, F] f32, edge_src/edge_dst int32[E], node_mask bool[N],
@@ -18,7 +22,7 @@ Graphs are padded, fixed-shape batches:
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -125,33 +129,41 @@ def gnn_param_specs(cfg: GNNConfig) -> dict:
 # layer forward passes (single layer; the model loops over the stack)
 # ---------------------------------------------------------------------------
 
-def _gather_agg(h_src_val, edge_dst, n, edge_mask):
-    return spmm_ops.scatter_sum(h_src_val, edge_dst, n, edge_mask)
+class Aggregation(NamedTuple):
+    """The sums over a graph's in-edges (masked edges dropped), on one
+    segment plan of ``edge_dst``."""
+
+    plan: spmm_ops.SegmentPlan
+    src_rows: torch.Tensor | None   # plan.compose(edge_src), gin and gcn
+
+    def edges(self, values):
+        """Per node, the sum of ``values [E, D]`` over its in-edges."""
+        return spmm_ops.segment_sum(values, self.plan)
+
+    def sources(self, x):
+        """Per node, the sum of ``x[src]`` over its in-edges, read from the
+        node rows of ``x [N, D]``."""
+        return spmm_ops.segment_sum(x, self.plan, self.src_rows)
 
 
-def gcn_layer(h, lp, g, cfg):
+def gcn_layer(h, lp, g, cfg, agg):
     n = h.shape[0]
-    src = g["edge_src"].long()
     deg = _segment_sum(g["edge_mask"].to(torch.float32), g["edge_dst"], n)
     norm = torch.rsqrt(torch.clamp(deg, min=1.0))
-    msg = h[src] * norm[src, None]
-    agg = _gather_agg(msg, g["edge_dst"], n, g["edge_mask"])
-    agg = agg * norm[:, None]
-    out = agg @ lp["w"] + lp["b"]
+    # h[src] * norm[src, None] per edge, scaled per node before the gather
+    out = agg.sources(h * norm[:, None]) * norm[:, None]
+    out = out @ lp["w"] + lp["b"]
     return F.relu(out) + h
 
 
-def gin_layer(h, lp, g, cfg):
-    n = h.shape[0]
-    agg = _gather_agg(h[g["edge_src"].long()], g["edge_dst"], n,
-                      g["edge_mask"])
-    mixed = (1.0 + lp["eps"]) * h + agg
+def gin_layer(h, lp, g, cfg, agg):
+    mixed = (1.0 + lp["eps"]) * h + agg.sources(h)
     out = F.relu(mixed @ lp["mlp_w1"] + lp["mlp_b1"])
     out = out @ lp["mlp_w2"] + lp["mlp_b2"]
     return F.relu(out) + h
 
 
-def gat_layer(h, lp, g, cfg):
+def gat_layer(h, lp, g, cfg, agg):
     n = h.shape[0]
     src, dst = g["edge_src"].long(), g["edge_dst"].long()
     hw = torch.einsum("nd,dhk->nhk", h, lp["w"])          # [N, H, hd]
@@ -160,9 +172,8 @@ def gat_layer(h, lp, g, cfg):
     scores = F.leaky_relu(s_src[src] + s_dst[dst], 0.2)   # [E, H]
     alpha = segment_softmax(scores, g["edge_dst"], n, g["edge_mask"])
     msg = hw[src] * alpha[..., None]                       # [E, H, hd]
-    agg = _gather_agg(msg.reshape(msg.shape[0], -1), g["edge_dst"], n,
-                      g["edge_mask"])
-    out = F.elu(agg.reshape(n, cfg.d_hidden))
+    out = F.elu(agg.edges(msg.reshape(msg.shape[0], -1)).reshape(
+        n, cfg.d_hidden))
     return out + h
 
 
@@ -172,18 +183,14 @@ def _norm(x, scale):
     return x / (x.std(-1, keepdim=True, correction=0) + 1e-6) * (1.0 + scale)
 
 
-def gatedgcn_layer(state, lp, g, cfg):
+def gatedgcn_layer(state, lp, g, cfg, agg):
     h, e = state
-    n = h.shape[0]
     src, dst = g["edge_src"].long(), g["edge_dst"].long()
     gate_in = h[src] @ lp["wa"] + h[dst] @ lp["wb"] + e @ lp["wc"]
     e_new = gate_in                                        # new edge features
     eta = torch.sigmoid(e_new)
     msg = eta * (h[src] @ lp["wv"])
-    num = _gather_agg(msg, g["edge_dst"], n, g["edge_mask"])
-    den = _gather_agg(eta, g["edge_dst"], n, g["edge_mask"])
-    agg = num / (den + 1e-6)
-    h_new = h @ lp["wu"] + agg
+    h_new = h @ lp["wu"] + agg.edges(msg) / (agg.edges(eta) + 1e-6)
     # lightweight norm standing in for batchnorm (full-batch graphs)
     h_new = _norm(h_new, lp["bn_n"])
     e_new = _norm(e_new, lp["bn_e"])
@@ -202,8 +209,13 @@ def forward(params, g, cfg: GNNConfig):
     """g: graph batch dict -> logits ([N, classes] or [G, classes]).
 
     Runs on the device of ``params`` and ``g``; the stacked ``[L, ...]``
-    layer parameters are applied one layer at a time.
+    layer parameters are applied one layer at a time, every aggregation on
+    one segment plan of ``edge_dst``.
     """
+    n = g["node_feat"].shape[0]
+    plan = spmm_ops.plan(g["edge_dst"], n, g["edge_mask"])
+    agg = Aggregation(plan, plan.compose(g["edge_src"])
+                      if cfg.kind in ("gcn", "gin") else None)
     h = F.relu(g["node_feat"] @ params["w_in"] + params["b_in"])
     n_edges = g["edge_src"].shape[0]
     if cfg.kind == "gatedgcn":
@@ -214,7 +226,7 @@ def forward(params, g, cfg: GNNConfig):
     layer_fn = _LAYERS[cfg.kind]
     for l in range(cfg.n_layers):
         lp = {k: v[l] for k, v in params["layers"].items()}
-        state = layer_fn(state, lp, g, cfg)
+        state = layer_fn(state, lp, g, cfg, agg)
     h = state[0] if cfg.kind == "gatedgcn" else state
 
     h = torch.where(g["node_mask"][:, None], h, 0.0)

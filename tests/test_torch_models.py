@@ -81,6 +81,35 @@ def test_gnn_forward_matches_jax(name, readout):
         jcfg, use_pallas=True)))
 
 
+@pytest.mark.parametrize("name", GNN_CASES)
+def test_gnn_forward_builds_one_plan(name, monkeypatch):
+    """A forward sorts its destinations once: one segment plan, reused by
+    every aggregation of every layer (one per layer, two for gatedgcn),
+    the gin and gcn ones reading ``h[src]`` through the composed rows."""
+    from repro_torch.kernels.segment_spmm import ops as spmm_ops
+
+    cfg = convert.gnn_config_from(_jax_gnn_config(name, 0, 5))
+    p = params.tree_init(gnn.gnn_param_specs(cfg),
+                         generator=torch.Generator().manual_seed(0),
+                         device="cpu")
+    _, g = _graphs(0, 5)
+    calls, plans = [], []
+    sum_rows = spmm_ops.segment_sum
+    monkeypatch.setattr(spmm_ops, "segment_sum", lambda v, plan, rows=None: (
+        calls.append((v.shape[0], rows is None)),
+        plans.append(plan), sum_rows(v, plan, rows))[-1])
+    spmm_ops.reset_launches()
+    gnn.forward(p, g, cfg)
+    assert spmm_ops.plans == {"segment_plan": 1}
+    assert spmm_ops.launches == {"segment_spmm": 0}     # CPU: plain version
+    per_layer = 2 if name == "gatedgcn" else 1
+    assert len(calls) == per_layer * cfg.n_layers
+    assert all(q is plans[0] for q in plans)
+    fused = name in ("gin-tu", "gcn")
+    # node rows with the composed row index, or per-edge rows in order
+    assert calls == [(PAD_N, False) if fused else (PAD_E, True)] * len(calls)
+
+
 def test_segment_softmax_and_scatter_mean_match_jax():
     rng = np.random.default_rng(3)
     e, n, h = 90, 12, 3

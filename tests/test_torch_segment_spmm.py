@@ -8,8 +8,11 @@ JAX tests run it) and against the JAX oracle ``ref.scatter_sum``
 (both sum each segment's rows in fp32, in another order), and for bf16
 2e-2 relative / 0.15 absolute against the fp32 oracle (the bf16 inputs and
 the rounding of the sums on the way out).  The CUDA kernel runs on the
-card only (``chip_smoke.py``); here its wrapper's sort and sentinel are
-checked by summing through the permutation on the CPU.
+card only (``chip_smoke.py``); here its wrapper's segment plan (sort,
+sentinel, offsets) is held against the JAX wrapper's ``jnp.argsort`` and
+checked by summing through the permutation on the CPU, and the row-indexed
+sum that fuses the ``h[src]`` gather is held against the JAX wrapper on
+the materialised ``h[src]``.
 """
 
 import jax.numpy as jnp
@@ -40,16 +43,17 @@ def _f32(x):
 
 
 def _through_permutation(values, seg, n, mask=None):
-    """What the kernel computes from the wrapper's sort, summed on the CPU
-    in the kernel's order: each segment's rows in ascending sorted order."""
-    sorted_ids, order = ops.sort_rows(seg, n, mask)
-    assert sorted_ids.dtype == torch.int32 and order.dtype == torch.int64
-    offsets = torch.searchsorted(sorted_ids, torch.arange(n + 1,
-                                                          dtype=torch.int32))
+    """What the kernel computes from the wrapper's plan, summed on the CPU
+    row by row: each segment's sorted positions, read through the
+    permutation."""
+    plan = ops.plan(seg, n, mask)
+    assert plan.sorted_ids.dtype == torch.int32
+    assert plan.order.dtype == torch.int32
+    assert plan.offsets.dtype == torch.int64
     out = torch.zeros((n, values.shape[1]), dtype=torch.float32)
     for s in range(n):
-        for r in range(int(offsets[s]), int(offsets[s + 1])):
-            out[s] += values[order[r]].float()
+        for r in range(int(plan.offsets[s]), int(plan.offsets[s + 1])):
+            out[s] += values[plan.order[r]].float()
     return out.to(values.dtype)
 
 
@@ -146,7 +150,8 @@ def test_wrapper_sort_feeds_the_kernel_its_rows(dtype):
         -5, n + 5, e).astype(np.int32))
     mask = torch.as_tensor(np.random.default_rng(15).random(e) < 0.8)
     tv = torch.as_tensor(values).to(dtype)
-    sorted_ids, order = ops.sort_rows(torch.as_tensor(seg), n, mask)
+    plan = ops.plan(torch.as_tensor(seg), n, mask)
+    sorted_ids, order = plan.sorted_ids, plan.order.long()
     assert torch.equal(sorted_ids, torch.sort(sorted_ids, stable=True)[0])
     dropped = (torch.as_tensor(seg)[order] < 0) \
         | (torch.as_tensor(seg)[order] >= n) | ~mask[order]
@@ -163,8 +168,15 @@ def test_wrapper_sort_feeds_the_kernel_its_rows(dtype):
 def test_wrapper_refuses_what_the_kernel_does_not_take():
     values = torch.zeros((4, 2))
     seg = torch.zeros(4, dtype=torch.int32)
+    plan = ops.plan(seg, 3)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        ops.launch_kernel(values, *ops.sort_rows(seg, 3), 3)
+        ops.launch_kernel(values, plan, plan.order)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.plan(seg.to("meta"), 3)
+    with pytest.raises(ValueError, match="rows has shape"):
+        ops.segment_sum(values, plan, plan.order[:3])
+    with pytest.raises(ValueError, match="index has shape"):
+        plan.compose(seg[:3])
     with pytest.raises(ValueError, match="unsupported device"):
         ops.scatter_sum(values.to("meta"), seg.to("meta"), 3)
     with pytest.raises(ValueError, match="expected \\[E, D\\]"):
@@ -191,3 +203,126 @@ def test_kernel_matches_plain_on_gpu():
             want = ref.scatter_sum(tv.float(), ts, n, mask)
             torch.testing.assert_close(got.float(), want, rtol=rtol,
                                        atol=atol)
+
+
+def _graph(n, e, d, seed, hot=False):
+    """Node rows ``h``, edges ``src -> dst`` with a mask, out-of-range and
+    negative destinations (and, with ``hot``, 80% of them on one node)."""
+    rng = np.random.default_rng(seed)
+    h = rng.standard_normal((n, d)).astype(np.float32)
+    src = rng.integers(0, n, e).astype(np.int32)
+    dst = rng.integers(-4, n + 4, e).astype(np.int32)
+    if hot:
+        dst = np.where(rng.random(e) < 0.8, 1, dst).astype(np.int32)
+    mask = rng.random(e) < 0.85
+    return h, src, dst, mask
+
+
+@pytest.mark.parametrize("with_mask", [False, True])
+@pytest.mark.parametrize("e,n", [(300, 40), (2048, 64), (1, 3), (0, 5)])
+def test_plan_matches_jax_wrapper_sort(e, n, with_mask):
+    """The plan's sorted ids and permutation are the JAX wrapper's kept ids
+    (masked rows to the sentinel ``n``) in ``jnp.argsort`` order, over the
+    rows ``jax.ops.segment_sum`` keeps; every dropped row (masked, out of
+    range, negative) sorts last at the sentinel, in input order; the
+    offsets are the first sorted position of each segment."""
+    _, _, dst, mask = _graph(max(n, 1), e, 2, e + n)
+    mask = mask if with_mask else None
+    plan = ops.plan(torch.as_tensor(dst), n,
+                    None if mask is None else torch.as_tensor(mask))
+    jids = jnp.asarray(dst)
+    if mask is not None:
+        jids = jnp.where(jnp.asarray(mask), jids, n)   # the JAX wrapper
+    jorder = np.asarray(jnp.argsort(jids))
+    jsorted = np.asarray(jids)[jorder]
+    kept = (jsorted >= 0) & (jsorted < n)
+    n_kept = int(kept.sum())
+    assert np.array_equal(plan.sorted_ids[:n_kept].numpy(), jsorted[kept])
+    assert np.array_equal(plan.order[:n_kept].numpy(), jorder[kept])
+    assert (plan.sorted_ids[n_kept:] == n).all()
+    assert np.array_equal(plan.order[n_kept:].numpy(), np.sort(jorder[~kept]))
+    # in full: jnp.argsort of the ids with every dropped row at n
+    dropped = (dst < 0) | (dst >= n)
+    if mask is not None:
+        dropped |= ~mask
+    full = np.asarray(jnp.argsort(jnp.where(jnp.asarray(dropped), n, dst)))
+    assert np.array_equal(plan.order.numpy(), full)
+    assert np.array_equal(plan.offsets.numpy(), np.searchsorted(
+        plan.sorted_ids.numpy(), np.arange(n + 1)))
+
+
+@pytest.mark.parametrize("hot", [False, True])
+@pytest.mark.parametrize("n,e,d", [(40, 300, 8), (128, 1000, 64),
+                                   (300, 513, 70), (64, 2048, 128)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_rows_indexed_sum_matches_jax_gather_and_sum(n, e, d, dtype, hot):
+    """The gather fused into the sum: rows ``plan.compose(src)`` of ``h``
+    give JAX ``ops.scatter_sum(h[src], dst, n, mask)`` (interpret mode)
+    and ``jax.ops.segment_sum``, at the JAX tests' tolerances (1e-4 for
+    f32 with a hot segment), and bitwise the sum over the materialised
+    ``h[src]`` with ``rows = order``."""
+    jdt, tdt, rtol, atol = DTYPES[dtype]
+    if hot and dtype == "float32":
+        rtol = atol = 1e-4
+    h, src, dst, mask = _graph(n, e, d, n + e + d, hot=hot)
+    th = torch.as_tensor(h).to(tdt)
+    plan = ops.plan(torch.as_tensor(dst), n, torch.as_tensor(mask))
+    got = ops.segment_sum(th, plan, plan.compose(torch.as_tensor(src)))
+    assert got.dtype == tdt and got.shape == (n, d)
+    assert torch.equal(got, ops.segment_sum(th[torch.as_tensor(src).long()],
+                                            plan))
+    jh = jnp.asarray(h, jdt)[jnp.asarray(src)]
+    for want in (jax_ops.scatter_sum(jh, jnp.asarray(dst), n,
+                                     jnp.asarray(mask)),
+                 jax_ref.scatter_sum(jh.astype(jnp.float32), jnp.asarray(dst),
+                                     n, jnp.asarray(mask))):
+        np.testing.assert_allclose(_f32(got), _f32(want), rtol=rtol,
+                                   atol=atol)
+
+
+def test_plans_and_launches_are_counted():
+    """A plan build counts once on any device; the CPU never counts a
+    kernel launch; ``scatter_sum`` builds its own plan."""
+    ops.reset_launches()
+    values = torch.ones((6, 3))
+    seg = torch.tensor([0, 2, 2, 1, 5, 0])
+    plan = ops.plan(seg, 3)
+    for _ in range(3):
+        ops.segment_sum(values, plan)
+    assert ops.plans == {"segment_plan": 1}
+    assert ops.scatter_sum(values, seg, 3).tolist() == [[2.0] * 3, [1.0] * 3,
+                                                        [2.0] * 3]
+    assert ops.plans == {"segment_plan": 2}
+    assert ops.launches == {"segment_spmm": 0}
+    ops.reset_launches()
+    assert ops.plans == {"segment_plan": 0}
+
+
+def test_kernel_fused_rows_and_hot_segment_on_gpu():
+    """On the card: the fused row index gives bitwise the ``rows = order``
+    result on the materialised ``h[src]``, each launch gives bitwise the
+    same output, a hot segment split into chunks equals the plain version
+    (f32 1e-4), and one plan serves every launch; skips on a host without
+    one (chip_smoke.py runs the same checks at full size)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py covers the kernel")
+    for n, e, d in ((64, 5000, 64), (300, 4000, 70), (40, 3000, 16)):
+        for _, tdt, rtol, atol in DTYPES.values():
+            h, src, dst, mask = _graph(n, e, d, n + e, hot=True)
+            th = torch.as_tensor(h, device="cuda").to(tdt)
+            tsrc = torch.as_tensor(src, device="cuda")
+            plan = ops.plan(torch.as_tensor(dst, device="cuda"), n,
+                            torch.as_tensor(mask, device="cuda"))
+            fused = ops.segment_sum(th, plan, plan.compose(tsrc))
+            again = ops.segment_sum(th, plan, plan.compose(tsrc))
+            msgs = th[tsrc.long()]
+            assert torch.equal(fused, again)
+            assert torch.equal(fused, ops.segment_sum(msgs, plan))
+            for chunk in (1, 7, 1 << 30):   # every segment split, none
+                got = ops.launch_kernel(msgs, plan, plan.order, chunk=chunk)
+                want = ref.scatter_sum(msgs.float(), torch.as_tensor(
+                    dst, device="cuda"), n, torch.as_tensor(
+                        mask, device="cuda"))
+                tol = (1e-4, 1e-4) if tdt == torch.float32 else (rtol, atol)
+                torch.testing.assert_close(got.float(), want.float(),
+                                           rtol=tol[0], atol=tol[1])
