@@ -15,11 +15,12 @@ launch, and checks them:
    generator at the edge count of SNAP's email-Eu-core-temporal, 332,334
    edges, at the paper's defaults delta=600, l_max=6, omega=20 (the flat
    kernel on the 376,832-slot stream, the dense kernel on its largest
-   bucket; the dense kernel is timed on every bucket, with its block
-   size, resident blocks and waves, and the per-lane sweep counts that
-   its hybrid sweep answers: warp use of lanes sweeping alone, and the
-   lanes still open after the solo slots); the dense kernel also on
-   adversarial rows (``adversarial_rows``);
+   bucket; the dense kernel is timed on every bucket; each kernel with its
+   block size, resident blocks and waves, and the per-lane sweep counts
+   that the hybrid sweep of both answers: warp use of lanes sweeping
+   alone, and the lanes still open after the solo slots); the dense
+   kernel also on adversarial rows (``adversarial_rows``) and the flat
+   kernel on their flat form (``adversarial_flat``);
 4. lossless TZP: ``discover`` on ``backend="cuda"`` equals ``sequential``
    on ``backend="ref"`` (collegemsg-like), and the bursty corpus equals
    the brute-force oracle;
@@ -36,10 +37,11 @@ launch, and checks them:
    with a mask, out-of-range ids and a hot segment, every segment split
    into chunks or none, each bitwise the same in two launches, and on a
    hot segment of 8M rows (10M rows into 100,000 segments), timed split
-   and unsplit; the embedding bag
-   (B5) on the JAX tests' shapes in f32 and bf16 and with ids outside the
-   table; each timed beside its plain version and one PyTorch library
-   call (``index_add_``, ``F.embedding_bag``) that is used nowhere else;
+   and unsplit; the embedding bag (B5) on the JAX tests' shapes in f32
+   and bf16 and with ids outside the table, and its grouped form (x0 of
+   several fields in one launch) on mixed vocabularies and strided views;
+   each timed beside its plain version and one PyTorch library call
+   (``index_add_``, ``F.embedding_bag``) that is used nowhere else;
 9. GNN inference at full width: ``gin-tu``, ``gat-cora`` and ``gatedgcn``
    at their CONFIG widths on ``minibatch_lg`` (169,984 nodes, 168,960
    edges, 602 features, 41 classes; ``random_graph_batch(seed=0)``),
@@ -54,11 +56,16 @@ launch, and checks them:
    message tensor, with its peak device memory;
 10. DCN-v2 serving at full width (26 tables, 22,875,000 rows x 16, a
     4M x 64 item table, seeded init on the card): ``serve_p99`` (512
-    examples) held against the CPU forward, B5 held against its plain
-    version on every field at ``serve_bulk`` (262,144 examples, bag 4),
-    ``serve_bulk`` timed (ms per forward, examples/s), and
+    examples) held against the CPU forward, the grouped B5 held against
+    its plain version on all 26 fields at ``serve_p99`` and
+    ``serve_bulk`` (262,144 examples, bag 4) and timed beside the
+    single-field B5 (F = 1) on each field alone, 26 of its launches writing
+    x0 in place in one graph, and 26 ``F.embedding_bag`` calls plus a
+    concat, ``serve_bulk`` timed (ms per forward, examples/s), and
     ``retrieval_cand`` (1 query, 1,000,000 candidates, top 100) held
-    against the CPU; 26 B5 launches per forward;
+    against the CPU; one B5 launch per forward; B5 and its library calls
+    are timed by replaying a CUDA graph of 20 calls (device time, without
+    the wrappers' host time, which a call at ``serve_p99`` exceeds);
 11. one JSON line naming every kernel with its launches, error and times;
 12. last line: ``{"ok": true, "device": {...}}``.
 
@@ -95,7 +102,8 @@ FULL_PARAMS = dict(delta=600, l_max=6, omega=20)
 COMINE = [(d, lm) for d in (600, 300) for lm in (6, 4)]
 TIMED_RUNS = 3
 KERNEL_REPS = 20
-# slots a lane of the dense kernel sweeps alone (kSoloSlots, zone_scan.cu)
+# slots a lane of either zone-scan kernel sweeps alone (kSoloSlots,
+# edge_update.cuh)
 SOLO_SLOTS = 32
 DEVICE = "cuda"
 # per visited slot the flat kernel loads zone_id, valid, t, u, v (5), tests
@@ -246,6 +254,96 @@ def adversarial_rows(w: int, e_cap: int = 2600, seed: int = 3):
                            t=t.astype(np.int32), valid=valid)
 
 
+def adversarial_flat(w: int, e_cap: int = 2600, blk: int = 512,
+                     seed: int = 5):
+    """A flat slot stream that probes the flat kernel's row ends under its
+    hybrid sweep (each lane alone for ``w`` slots, then its warp 32 slots
+    per step), at ``delta=1000``.  Zones, laid end to end in this order:
+
+    * each of the six rows of ``adversarial_rows(w, e_cap)`` (``E`` no
+      multiple of 32, so each ends inside a warp), then four short zones
+      of 1 to 40 slots (several zones per warp) over six nodes, at times
+      that run on from the row's last slot: the first edge of every zone
+      would extend the open lanes of the zone before it;
+    * after rows 1 and 4, zones of ``w``, ``w + 1`` and ``w + 2`` slots
+      seeded on their first slot, each followed by such a short zone: the
+      first lane meets its zone's end on the last solo slot, the first
+      cooperative slot and the one after (fillers on new nodes keep it
+      open), and so do the fillers' lanes at other offsets;
+    * the last zone ends inside a warp, on the stream pad (``zone_id``
+      -1, ``valid`` 0).
+
+    ``hi`` of each block is the ``blk``-aligned end of the last zone its
+    lanes belong to (``bounds="full"``), except in the block in the middle
+    of row 5 (sorted, bursty: its lanes extend across the cut), whose
+    ``hi`` is its own end.  Returns the fields of a flat layout that
+    :func:`check_flat` reads.
+    """
+    from types import SimpleNamespace
+
+    rng = np.random.default_rng(seed)
+    rows = adversarial_rows(w, e_cap)
+    zones = []
+    fresh = iter(range(50_000, 10_000_000))
+
+    def short_zones(t0, n):
+        for _ in range(n):
+            size = int(rng.integers(1, 41))
+            u = rng.integers(0, 6, size)
+            v = rng.integers(0, 6, size)
+            u[0], v[0] = 1, 2
+            t = t0 + 1 + np.cumsum(rng.integers(0, 4, size))
+            ok = rng.random(size) < 0.85
+            ok[0] = True
+            zones.append((u, v, t, ok))
+            t0 = int(t[-1])
+        return t0
+
+    for r in range(6):
+        zones.append((rows.u[r], rows.v[r], rows.t[r], rows.valid[r]))
+        if r == 5:
+            row5 = len(zones) - 1
+        t0 = short_zones(int(rows.t[r][-1]), 4)
+        if r in (1, 4):
+            for size in (w, w + 1, w + 2):
+                u = np.asarray([next(fresh) for _ in range(size)])
+                v = np.asarray([next(fresh) for _ in range(size)])
+                u[0], v[0] = 0, 1
+                t = t0 + 1 + np.arange(size) // 4
+                zones.append((u, v, t, np.ones(size, bool)))
+                t0 = short_zones(int(t[-1]), 1)
+    n = sum(z[0].size for z in zones)
+    if n % 32 == 0:                        # end the stream inside a warp
+        u, v, t, ok = zones[-1]
+        zones[-1] = (np.append(u, 3), np.append(v, 4), np.append(t, t[-1]),
+                     np.append(ok, True))
+        n += 1
+    s_pad = -(-n // blk) * blk
+    cat = lambda i, fill: np.concatenate(
+        [z[i] for z in zones] + [np.full(s_pad - n, fill)])
+    zone_id = np.concatenate(
+        [np.full(z[0].size, i) for i, z in enumerate(zones)]
+        + [np.full(s_pad - n, -1)]).astype(np.int32)
+    ends = np.cumsum([z[0].size for z in zones])
+    n_blocks = s_pad // blk
+    lo = np.arange(n_blocks, dtype=np.int32) * blk
+    hi = lo.copy()
+    for i in range(n_blocks):
+        last = zone_id[min((i + 1) * blk, n) - 1] if i * blk < n else -1
+        if last >= 0:
+            hi[i] = -(-ends[last] // blk) * blk
+    start5 = ends[row5] - zones[row5][0].size
+    cut = (start5 + e_cap // 2) // blk
+    hi[cut] = (cut + 1) * blk
+    valid = cat(3, False).astype(bool)
+    return SimpleNamespace(
+        u=cat(0, 0).astype(np.int32), v=cat(1, 0).astype(np.int32),
+        t=cat(2, 0).astype(np.int32), valid=valid.astype(np.int32),
+        zone_id=zone_id, lo=lo, hi=hi, blk=blk, n_slots=s_pad,
+        n_blocks=n_blocks, valid_edges=int(valid.sum()),
+        bounds=f"full, block {cut} cut at its end")
+
+
 def cuda_ms(fn, reps: int = 1) -> float:
     """Mean device time of ``fn()`` over ``reps`` calls (CUDA events)."""
     import torch
@@ -259,6 +357,25 @@ def cuda_ms(fn, reps: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = KERNEL_REPS) -> float:
+    """Device time of one ``fn()`` with the host left out: ``reps`` calls
+    captured in one CUDA graph, the graph replayed and timed with CUDA
+    events (for a kernel whose wrapper takes longer on the host than the
+    kernel on the card, where ``cuda_ms`` times the host)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    ms = cuda_ms(graph.replay, 3) / reps
+    del graph
+    return ms
 
 
 def flat_tensors(fl, device):
@@ -350,10 +467,14 @@ def report_registers(logs: dict) -> None:
     kernels: dict[tuple, list] = {}
     for (src, name), r in others.items():
         base = short_name(name).split("<")[0].split("(")[0]
-        kernels.setdefault((src, base), []).append(r)
-    for (src, base), regs in kernels.items():
+        kernels.setdefault((src, base), []).append((short_name(name), r))
+    for (src, base), insts in kernels.items():
+        regs = [r for _, r in insts]
+        # each instantiation of a kernel that has few of them
+        each = ("" if len(insts) > 8 else " (" + "; ".join(
+            f"{n[len(base):]} {r}" for n, r in insts) + ")")
         log(f"[build] {src} {base}: {min(regs)}-{max(regs)} registers over "
-            f"{len(regs)} instantiation(s)")
+            f"{len(regs)} instantiation(s){each}")
     short = []
     for src, name, inst, st, ld in spills:
         label = (f"l_max={inst.group(1)} ts={inst.group(2)}" if inst
@@ -416,8 +537,8 @@ def dense_lane_steps(args, *, delta, l_max):
     """Slots each lane of one ``[Z, E]`` batch visits in the sequential
     sweep, its seed included (``int64[Z * E]`` in the kernel's lane order,
     0 for an invalid slot): the flat sweep's count on the same rows laid
-    end to end, one block per row (every sweep of the kernels stops where
-    ``ptmt::sweep_row`` stops)."""
+    end to end, one block per row (the kernels' sweeps stop where the
+    sequential sweep stops)."""
     import torch
     from repro_torch.kernels.zone_scan import ref
 
@@ -431,11 +552,12 @@ def dense_lane_steps(args, *, delta, l_max):
 
 def sweep_counts(label, steps) -> None:
     """Logs how a warp of lanes that each sweep alone would use its
-    lane-steps on one batch, and what the dense kernel's hybrid sweep
-    leaves at W = 16 and at its W = SOLO_SLOTS solo slots: lanes still open
-    after W, the warp-steps of the capped solo phase, and the 32-slot steps
-    the open lanes' remaining slots need (each event the warp applies adds
-    at most one more).  Counts, not times."""
+    lane-steps on one batch or flat stream, and what the zone-scan
+    kernels' hybrid sweep leaves at W = 16 and at their W = SOLO_SLOTS
+    solo slots: lanes still open after W, the warp-steps of the capped
+    solo phase, and the 32-slot steps the open lanes' remaining slots need
+    (each event the warp applies adds at most one more).  Counts, not
+    times."""
     import torch
 
     after = (steps - 1).clamp(min=0)              # slots after the seed
@@ -461,6 +583,31 @@ def sweep_counts(label, steps) -> None:
         f"visiting lane); lanes sweeping alone: {longest} warp-steps, "
         f"{busy / max(1, 32 * longest):.1%} of their lane-steps busy; "
         "hybrid " + "; ".join(hybrid))
+
+
+def flat_span_ms(args, layout, *, delta, l_max, blk) -> list:
+    """The flat kernel timed on the blocks of each bucket's rows in the
+    flat stream (``concat_layout``'s order; a block shared by two buckets
+    runs in both), ``hi`` rebased and cut at the span's end: where its
+    time goes.  Returns ``[(bucket label, slots, ms)]``."""
+    import torch
+    from repro_torch.kernels.zone_scan import ops
+
+    out, pos = [], 0
+    for b in layout.buckets:
+        n = int((b.perm >= 0).sum()) * b.e_cap
+        first, end = pos // blk, -(-(pos + n) // blk)
+        pos += n
+        sub = [x[first * blk:end * blk] for x in args[:5]]
+        lo = torch.arange(end - first, dtype=torch.int32,
+                          device=args[0].device) * blk
+        hi = torch.maximum((args[6][first:end] - first * blk).clamp(
+            max=(end - first) * blk), lo)
+        run = lambda: ops.launch_kernel(*sub, lo, hi, delta=delta,
+                                        l_max=l_max, blk=blk)
+        run()       # the outputs' first allocation stays out of the time
+        out.append((b.label, (end - first) * blk, cuda_ms(run, KERNEL_REPS)))
+    return out
 
 
 def kernel_ops():
@@ -743,6 +890,51 @@ def check_bag_shapes() -> float:
     return errs["float32"]
 
 
+def check_bag_fields() -> float:
+    """The grouped B5 (x0 in one launch) against its plain version on
+    small batches: six fields of mixed vocabularies (3 to 20,000 rows),
+    ids outside the tables and negative ids, ids, weights and dense
+    columns as strided views, with and without dense columns, at B = 5
+    (one block), 512 and 5,000 (x0 rows that start on and off 16 bytes);
+    f32 and bf16 tables (a bf16 x0 without dense columns, an f32 one
+    with them).  Returns the largest f32 error."""
+    import torch
+    from repro_torch.kernels.embedding_bag import ops, ref
+
+    rng = np.random.default_rng(31)
+    vocabs, d, k, n_dense = (100, 7, 1000, 50, 3, 20_000), 16, 4, 13
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    for b in (5, 512, 5000):
+        tables = [rng.standard_normal((v, d)).astype(np.float32)
+                  for v in vocabs]
+        ids = np.stack([rng.integers(-v - 3, v + 3, (b, 2 * k))
+                        for v in vocabs for _ in (0, 1)], 1)
+        ids = torch.as_tensor(ids.astype(np.int32), device=DEVICE)[
+            :, ::2, ::2]
+        w = torch.as_tensor(rng.standard_normal(
+            (b, 2 * len(vocabs), k)).astype(np.float32), device=DEVICE)[
+                :, 1::2]
+        dense = torch.as_tensor(rng.standard_normal(
+            (b, 2 * n_dense)).astype(np.float32), device=DEVICE)[:, ::2]
+        for dt in errs:
+            tabs = [torch.as_tensor(t, device=DEVICE).to(getattr(torch, dt))
+                    for t in tables]
+            for x in (dense, None):
+                got = ops.embedding_bag_fields(tabs, ids, w, x)
+                torch.cuda.synchronize()
+                want = ref.embedding_bag_fields([t.float() for t in tabs],
+                                                ids, w, x)
+                err = hold(f"embedding_bag_fields B={b} {dt} dense="
+                           f"{x is not None}", got, want, *TOL_BAG[dt])
+                errs[dt] = max(errs[dt], err)
+    log(f"[kernel-vs-plain] embedding_bag_fields on 3 batches x f32/bf16 x "
+        f"with and without dense columns ({len(vocabs)} fields of "
+        f"{vocabs} rows, ids outside the tables, strided views): max abs "
+        f"err f32 {errs['float32']}, bf16 {errs['bfloat16']} (tolerances "
+        f"{TOL_BAG})")
+    return errs["float32"]
+
+
 def spmm_layer(label, h, g, n, bound, reps, per_forward):
     """B4 on one gin-tu layer's aggregation, the gather fused (rows
     ``plan.compose(src)`` of ``h``) and not (``rows = order`` over the
@@ -967,11 +1159,48 @@ def dcn_batch(cfg, b, seed):
     return cpu, tree_to(cpu, DEVICE)
 
 
+def bag_fields_bound(bound, label, tables, b, ms):
+    """The grouped B5's bound on one batch, counted as the single field's:
+    int32 ids and f32 weights, each distinct row of each table once, the
+    dense columns read and x0 written once, against 2 x B x F x K x D
+    fp32 operations."""
+    import torch
+
+    ids, dense = b["sparse_ids"], b["dense"]
+    n_bags, n_fields, k = ids.shape
+    d = tables[0].shape[1]
+    rows = sum(int(torch.unique(ids[:, f]).numel())
+               for f in range(n_fields))
+    n_bytes = (n_bags * n_fields * k * (4 + 4) + rows * d * 4
+               + dense.numel() * 4 + n_bags * (dense.shape[1]
+                                               + n_fields * d) * 4)
+    return bound(label, n_bytes, 2 * n_bags * n_fields * k * d, ms,
+                 rate=FP32_RATE, unit="fp32")
+
+
+def check_fields_at(label, tables, b):
+    """The grouped B5 against its plain version on every field of one
+    DCN-v2 batch; returns the error."""
+    import torch
+    from repro_torch.kernels.embedding_bag import ops, ref
+
+    args = (tables, b["sparse_ids"], b["sparse_weights"], b["dense"])
+    got = ops.embedding_bag_fields(*args)
+    torch.cuda.synchronize()
+    err = hold(f"embedding_bag_fields {label}", got,
+               ref.embedding_bag_fields(*args), *TOL_BAG["float32"])
+    log(f"[dcn] embedding_bag_fields == plain on all {len(tables)} fields "
+        f"at {label} (x0 {tuple(got.shape)}, max abs err {err})")
+    return err
+
+
 def dcn_serving(bound):
-    """DCN-v2 at full width: serve_p99 against the CPU, B5 on every field
-    at serve_bulk, serve_bulk timed, retrieval_cand against the CPU.
-    Returns B5's launches in the counted runs, its largest error and its
-    timing on the first field at serve_bulk."""
+    """DCN-v2 at full width: serve_p99 against the CPU, the grouped B5 on
+    every field at serve_p99 and serve_bulk, the single-field B5 on each
+    field at serve_bulk (alone, and 26 launches into x0 as a forward would
+    make them), serve_bulk timed, retrieval_cand against the CPU.  Returns
+    the grouped B5's launches in the counted runs (the main path's), its
+    largest error, and its timing at serve_bulk."""
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import dcn_v2
@@ -986,82 +1215,140 @@ def dcn_serving(bound):
         device=DEVICE).manual_seed(0), device=DEVICE)
     torch.cuda.synchronize()
     p_cpu = tree_to(p, "cpu")
+    tables = [p["tables"][f"t{i}"] for i in range(cfg.n_sparse)]
     log(f"[dcn] {cfg.n_params()} params ({sum(cfg.vocab_sizes)} table rows "
         f"x {cfg.embed_dim}, item table {cfg.n_items} x "
         f"{cfg.d_retrieval}) made on the card and copied to the host in "
         f"{time.perf_counter() - t0:.1f}s")
-    launches, err = 0, 0.0
+    launches = {"embedding_bag_fields": 0}
+    errs = {"embedding_bag_fields": 0.0}
 
     # serve_p99: the card's forward against the CPU's
     b_cpu, b = dcn_batch(cfg, shapes["serve_p99"].batch, 1)
+    errs["embedding_bag_fields"] = check_fields_at("serve_p99", tables, b)
+    p99 = lambda: ops.embedding_bag_fields(
+        tables, b["sparse_ids"], b["sparse_weights"], b["dense"])
+    p99_ms = graph_ms(p99)
+    log(f"[dcn] embedding_bag_fields serve_p99: {p99_ms:.4f} ms on the "
+        f"card per launch (graph replay); {cuda_ms(p99, KERNEL_REPS):.4f} "
+        "ms per call with the wrapper's host time (CUDA events)")
+    bag_fields_bound(bound, "embedding_bag_fields serve_p99", tables, b,
+                     p99_ms)
     want = recsys.forward(p_cpu, b_cpu, cfg)
     recsys.forward(p, b, cfg)
     (out, times), _, counts = run_counted(
         f"dcn-v2 serve_p99 x{TIMED_RUNS}",
         lambda: timed_runs_of(lambda: recsys.forward(p, b, cfg)),
-        {"embedding_bag": cfg.n_sparse * TIMED_RUNS})
-    launches += counts["embedding_bag"]
+        {"embedding_bag_fields": TIMED_RUNS})
+    launches["embedding_bag_fields"] += counts["embedding_bag_fields"]
     e = hold("dcn-v2 serve_p99 forward on the card vs the CPU", out.cpu(),
              want, *scaled_tol(want, DCN_TOL))
     log(f"[dcn] serve_p99 (B={b['dense'].shape[0]}): forward == CPU forward "
         f"(max abs err {e}, |logits| <= {float(want.abs().max()):.3f}); ms "
-        "per forward " + ", ".join(f"{t * 1e3:.3f}" for t in times))
+        "per forward " + ", ".join(f"{t * 1e3:.3f}" for t in times)
+        + "; 1 B5 launch per forward")
     profiled("dcn", "serve_p99 forward", lambda: recsys.forward(p, b, cfg))
 
-    # serve_bulk: B5 against its plain version on every field, timed
+    # serve_bulk: the grouped B5 against its plain version, timed beside
+    # the single-field B5 on each field, F.embedding_bag and a concat
     b_cpu, b = dcn_batch(cfg, shapes["serve_bulk"].batch, 2)
     n_bags = b["dense"].shape[0]
-    field_ms, forward_bytes, forward_ops, timing = [], 0, 0, None
-    for i in range(cfg.n_sparse):
-        table = p["tables"][f"t{i}"]
-        ids = b["sparse_ids"][:, i].contiguous()
-        w = b["sparse_weights"][:, i].contiguous()
-        got = ops.embedding_bag(table, ids, w)
-        torch.cuda.synchronize()
-        err = max(err, hold(f"embedding_bag serve_bulk field {i}", got,
-                            ref.embedding_bag(table, ids, w),
-                            *TOL_BAG["float32"]))
-        field_ms.append(cuda_ms(lambda: ops.embedding_bag(table, ids, w),
-                                KERNEL_REPS))
-        # bytes: ids and weights, each distinct row once, the output
-        k, d = ids.shape[1], table.shape[1]
-        rows = int(torch.unique(ids).numel())
-        n_bytes = n_bags * k * (4 + 4) + rows * d * 4 + n_bags * d * 4
-        forward_bytes += n_bytes
-        forward_ops += 2 * n_bags * k * d
+    ids_all, w_all, dense = (b["sparse_ids"], b["sparse_weights"],
+                             b["dense"])
+    errs["embedding_bag_fields"] = max(errs["embedding_bag_fields"],
+                                       check_fields_at("serve_bulk", tables,
+                                                       b))
+    grouped = lambda: ops.embedding_bag_fields(tables, ids_all, w_all, dense)
+    plain_fields = lambda: ref.embedding_bag_fields(tables, ids_all, w_all,
+                                                    dense)
+    fields_ms = graph_ms(grouped)
+    fields_plain_ms = cuda_ms(plain_fields, 3)
+    library = lambda: torch.cat([dense] + [F.embedding_bag(
+        ids_all[:, i], t, mode="sum", per_sample_weights=w_all[:, i])
+        for i, t in enumerate(tables)], dim=-1)
+    library_ms = graph_ms(library)
+    fields_bound = bag_fields_bound(
+        bound, f"embedding_bag_fields serve_bulk, all {cfg.n_sparse} "
+        "fields", tables, b, fields_ms)
+    # where the grouped launch's time goes: the fields of large (HBM),
+    # medium and small (L2) tables, each range in one launch of its own
+    vocab = torch.as_tensor(cfg.vocab_sizes)
+    for label, sel in (("vocab >= 1M", vocab >= 1_000_000),
+                       ("vocab 100k-1M", (vocab >= 100_000)
+                        & (vocab < 1_000_000)),
+                       ("vocab < 100k", vocab < 100_000)):
+        idx = torch.nonzero(sel).flatten().tolist()
+        if not idx:
+            continue
+        part = {"sparse_ids": ids_all[:, idx], "dense": dense[:, :0]}
+        sub = ([tables[i] for i in idx], part["sparse_ids"],
+               w_all[:, idx])
+        part_ms = graph_ms(lambda: ops.embedding_bag_fields(*sub))
+        log(f"[dcn] embedding_bag_fields serve_bulk, the {len(idx)} fields "
+            f"of {label}: {part_ms:.4f} ms")
+        bag_fields_bound(bound, f"embedding_bag_fields serve_bulk, "
+                         f"{label}", sub[0], part, part_ms)
+    timing = {"embedding_bag_fields": (fields_ms, fields_plain_ms,
+                                       *fields_bound, None)}
+    # the single-field B5 (F = 1) on each field: held against its plain
+    # version, timed alone (each field's graph replayed on its own keeps
+    # that field's ids, weights and small table in L2) and as a forward
+    # would run it (one graph of 26 launches in field order, each writing
+    # its columns of x0 in place after the dense columns' copy)
+    d = cfg.embed_dim
+    nd = dense.shape[1]
+    field_ms, bag_err = [], 0.0
+    for i, table in enumerate(tables):
+        ids, w = ids_all[:, i], w_all[:, i]
+        bag_err = max(bag_err, hold(
+            f"embedding_bag serve_bulk field {i}",
+            ops.embedding_bag(table, ids, w),
+            ref.embedding_bag(table, ids, w), *TOL_BAG["float32"]))
+        field_ms.append(graph_ms(lambda: ops.embedding_bag(table, ids, w)))
         if i == 0:
-            plain_ms = cuda_ms(lambda: ref.embedding_bag(table, ids, w), 3)
-            F.embedding_bag(ids, table, mode="sum", per_sample_weights=w)
-            library_ms = cuda_ms(lambda: F.embedding_bag(
-                ids, table, mode="sum", per_sample_weights=w), KERNEL_REPS)
-            b_ms, by = bound("embedding_bag serve_bulk field 0", n_bytes,
-                             2 * n_bags * k * d, field_ms[0], rate=FP32_RATE,
-                             unit="fp32")
-            timing = (field_ms[0], plain_ms, b_ms, by, library_ms)
-            log(f"[dcn] embedding_bag serve_bulk field 0 (V="
-                f"{table.shape[0]}, {rows} distinct rows of "
-                f"{n_bags * k} read): kernel {field_ms[0]:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, F.embedding_bag {library_ms:.4f} ms")
-    log(f"[dcn] embedding_bag == plain on all {cfg.n_sparse} fields at "
-        f"serve_bulk (max abs err {err}); kernels {sum(field_ms):.4f} ms "
-        "per forward (fields " + ", ".join(f"{m:.4f}" for m in field_ms)
-        + ")")
-    bound(f"embedding_bag serve_bulk, all {cfg.n_sparse} fields",
-          forward_bytes, forward_ops, sum(field_ms), rate=FP32_RATE,
-          unit="fp32")
+            lib0_ms = graph_ms(lambda: F.embedding_bag(
+                ids, table, mode="sum", per_sample_weights=w))
+    x0 = torch.empty((n_bags, nd + len(tables) * d), device=DEVICE)
+
+    def per_field_x0():
+        x0[:, :nd].copy_(dense)
+        for f, table in enumerate(tables):
+            ops.embedding_bag(table, ids_all[:, f], w_all[:, f],
+                              out=x0[:, nd + f * d:nd + (f + 1) * d])
+        return x0
+
+    per_field_ms = graph_ms(per_field_x0)
+    if not torch.equal(per_field_x0(), grouped()):
+        raise SystemExit("embedding_bag: 26 single-field launches into x0 "
+                         "differ from the grouped launch")
+    del x0
+    log(f"[dcn] embedding_bag (F = 1) == plain on all {cfg.n_sparse} fields "
+        f"at serve_bulk (max abs err {bag_err}); field 0 alone "
+        f"{field_ms[0]:.4f} ms (F.embedding_bag {lib0_ms:.4f} ms); the "
+        f"{cfg.n_sparse} fields each alone {sum(field_ms):.4f} ms ("
+        + ", ".join(f"{m:.4f}" for m in field_ms) + ")")
+    bag_fields_bound(bound, f"embedding_bag serve_bulk, {cfg.n_sparse} "
+                     "single-field launches into x0 (one graph)", tables, b,
+                     per_field_ms)
+    log(f"[dcn] x0 at serve_bulk ({n_bags} x {nd + cfg.n_sparse * d}): "
+        f"embedding_bag_fields {fields_ms:.4f} ms in one launch; "
+        f"{cfg.n_sparse} single-field launches into x0 in one graph "
+        f"{per_field_ms:.4f} ms (bitwise equal); {cfg.n_sparse} "
+        f"F.embedding_bag + torch.cat {library_ms:.4f} ms; plain "
+        f"{fields_plain_ms:.4f} ms")
     recsys.forward(p, b, cfg)
     (out, times), _, counts = run_counted(
         f"dcn-v2 serve_bulk x{TIMED_RUNS}",
         lambda: timed_runs_of(lambda: recsys.forward(p, b, cfg)),
-        {"embedding_bag": cfg.n_sparse * TIMED_RUNS})
-    launches += counts["embedding_bag"]
+        {"embedding_bag_fields": TIMED_RUNS})
+    launches["embedding_bag_fields"] += counts["embedding_bag_fields"]
     if out.shape != (n_bags,) or not bool(torch.isfinite(out).all()):
         raise SystemExit("dcn-v2 serve_bulk: logits not finite")
     log(f"[dcn] serve_bulk (B={n_bags}, bag {cfg.bag_size}): ms per forward "
         + ", ".join(f"{t * 1e3:.3f}" for t in times)
         + f"; examples/s best {n_bags / min(times):.0f}")
     profiled("dcn", "serve_bulk forward", lambda: recsys.forward(p, b, cfg))
-    del b, b_cpu, out
+    del b, b_cpu, out, ids_all, w_all, dense
 
     # retrieval_cand: one query against 1M candidates, top 100
     shape = shapes["retrieval_cand"]
@@ -1072,11 +1359,12 @@ def dcn_serving(bound):
     want_s, want_i = recsys.retrieval_step(p_cpu, q_cpu, cand_cpu, cfg,
                                            top_k=TOP_K)
     recsys.retrieval_step(p, q, cand, cfg, top_k=TOP_K)
-    (top_s, top_i), dt, counts = run_counted(
-        "dcn-v2 retrieval_cand",
-        lambda: recsys.retrieval_step(p, q, cand, cfg, top_k=TOP_K),
-        {"embedding_bag": cfg.n_sparse})
-    launches += counts["embedding_bag"]
+    ((top_s, top_i), times), _, counts = run_counted(
+        f"dcn-v2 retrieval_cand x{TIMED_RUNS}",
+        lambda: timed_runs_of(lambda: recsys.retrieval_step(
+            p, q, cand, cfg, top_k=TOP_K)),
+        {"embedding_bag_fields": TIMED_RUNS})
+    launches["embedding_bag_fields"] += counts["embedding_bag_fields"]
     e = hold("dcn-v2 retrieval scores on the card vs the CPU", top_s.cpu(),
              want_s, *scaled_tol(want_s, DCN_TOL))
     gaps = (want_s[:, 1:] - want_s[:, :-1]).abs() > 1e-5
@@ -1088,12 +1376,13 @@ def dcn_serving(bound):
                          "where the scores are distinct")
     log(f"[dcn] retrieval_cand: 1 query x {shape.n_candidates} candidates, "
         f"top {TOP_K} == CPU (score err {e}; ids equal at "
-        f"{int(distinct.sum())} distinct scores); {dt * 1e3:.3f} ms")
+        f"{int(distinct.sum())} distinct scores); ms per call "
+        + ", ".join(f"{t * 1e3:.3f}" for t in times))
     profiled("dcn", "retrieval_cand", lambda: recsys.retrieval_step(
         p, q, cand, cfg, top_k=TOP_K))
-    del p, p_cpu
+    del p, p_cpu, tables
     torch.cuda.empty_cache()
-    return launches, err, timing
+    return launches, errs, timing
 
 
 def main() -> int:
@@ -1161,6 +1450,16 @@ def main() -> int:
     for lm in (6, 3):
         check_dense(f"adversarial rows l_max={lm}", adversarial, delta=1000,
                     l_max=lm)
+    log("[kernel-vs-plain] the flat form (adversarial_flat: several zones "
+        "per warp, zone ends at the solo/cooperative boundary, a row ending "
+        "on the stream pad, a block's hi cutting a row) for the flat "
+        "kernel's row ends: both variants at delta=1000")
+    adversarial = adversarial_flat(SOLO_SLOTS)
+    for lm in (6, 3):
+        for with_ts in (False, True):
+            check_flat(f"adversarial flat l_max={lm}", adversarial,
+                       delta=1000, l_max=lm, with_ts=with_ts)
+    del adversarial
 
     gen, _ = synthetic_graphs.DATASET_ANALOGS["email-eu-like"]
     graph = gen(n_edges=FULL_EDGES, n_nodes=FULL_NODES, seed=0)
@@ -1196,6 +1495,13 @@ def main() -> int:
     # flat kernel, both variants, on the full-size stream
     steps = None
     for with_ts in (False, True):
+        threads, per_sm = ops.flat_occupancy(lm, with_ts)
+        resident = props.multi_processor_count * per_sm * threads
+        log(f"[occupancy] {VARIANT_FLAT[with_ts]} l_max={lm}: {threads} "
+            f"threads per block, {per_sm} blocks per SM, {resident} lanes "
+            f"resident; {fl.n_slots / resident:.2f} waves over the "
+            f"{fl.n_slots}-slot stream")
+    for with_ts in (False, True):
         name = VARIANT_FLAT[with_ts]
         args, out, errs[name] = check_flat("full-size", fl, delta=d,
                                            l_max=lm, with_ts=with_ts)
@@ -1205,7 +1511,9 @@ def main() -> int:
         plain_ms = cuda_ms(lambda: ref.fused_zone_scan_torch(
             *args, delta=d, l_max=lm, blk=fl.blk, with_ts=with_ts))
         if steps is None:
-            steps = ref.live_steps(*args, delta=d, l_max=lm, blk=fl.blk)
+            lane_steps = ref.lane_steps(*args, delta=d, l_max=lm, blk=fl.blk)
+            steps = int(lane_steps.sum())
+            sweep_counts(f"flat stream ({fl.n_slots} slots)", lane_steps)
         n_bytes = (5 * 4 * fl.n_slots + 2 * 4 * fl.n_blocks
                    + (limbs + 1 + (lm if with_ts else 0)) * 4 * fl.n_slots)
         n_ops = steps * (OPS_FIXED + OPS_PER_NODE * (lm + 1))
@@ -1215,6 +1523,12 @@ def main() -> int:
             f"lane-slots")
         if not with_ts:
             main_code, main_length = out
+            spans = flat_span_ms(args, layout, delta=d, l_max=lm,
+                                 blk=fl.blk)
+            log(f"[full-size] {name} on each bucket's span of the stream: "
+                + ", ".join(f"{label} ({n} slots) {span:.4f} ms"
+                            for label, n, span in spans)
+                + f"; {sum(x[2] for x in spans):.4f} ms in all")
     del args, out
 
     # dense kernel, both variants, timed on every bucket of the same
@@ -1426,7 +1740,9 @@ def main() -> int:
     # -- 8. model-zoo kernels vs plain ----------------------------------
     t_phase = time.perf_counter()
     errs["segment_spmm"] = max(check_spmm_shapes(), spmm_hot_segment(bound))
-    errs["embedding_bag"] = check_bag_shapes()
+    # the single-field entry point is the same kernel with F = 1
+    errs["embedding_bag_fields"] = max(check_bag_shapes(),
+                                       check_bag_fields())
     log(f"[kernel-vs-plain] model zoo phase "
         f"{time.perf_counter() - t_phase:.1f}s")
 
@@ -1440,8 +1756,10 @@ def main() -> int:
 
     # -- 10. DCN-v2 serving ---------------------------------------------
     t_phase = time.perf_counter()
-    bag_launches, err, timing["embedding_bag"] = dcn_serving(bound)
-    errs["embedding_bag"] = max(errs["embedding_bag"], err)
+    bag_launches, bag_errs, bag_timing = dcn_serving(bound)
+    timing.update(bag_timing)
+    for name, err in bag_errs.items():
+        errs[name] = max(errs[name], err)
     log(f"[dcn] phase {time.perf_counter() - t_phase:.1f}s")
 
     # -- 11. kernels ----------------------------------------------------
@@ -1455,7 +1773,8 @@ def main() -> int:
         ("zone_scan_dense_ts", SRC + "zone_scan.cu", TPU + ":245 (with_ts)",
          dense_ts_launches),
         ("segment_spmm", SPMM_SRC, SPMM_TPU, spmm_launches),
-        ("embedding_bag", BAG_SRC, BAG_TPU, bag_launches),
+        ("embedding_bag_fields", BAG_SRC, BAG_TPU + " (all fields, x0)",
+         bag_launches["embedding_bag_fields"]),
     )
     kernels = []
     for name, src, replaces, n in rows:

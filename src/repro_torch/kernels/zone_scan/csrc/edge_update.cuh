@@ -25,18 +25,22 @@
 // seed; a lane that is never seeded keeps zeros.  The array is written in
 // the same unrolled, predicated way, so it stays in registers too.
 //
-// sweep_row() is the per-lane row sweep of the flat kernel: a seeded lane
-// reads the later slots of its own zone row and stops at the row's end or
-// as soon as no later slot can change its outputs.  sweep_row_warp() is
-// the same sweep for a whole warp of lanes (the dense kernel): each lane
-// sweeps at most W slots on its own, then the warp finishes the lanes left
-// open one at a time, 32 slots per step.
+// sweep_row_warp() is the row sweep of both kernels, for a whole warp of
+// lanes: a seeded lane reads the later slots of its own zone row, at most
+// kSoloSlots of them on its own, then the warp finishes the lanes left
+// open one at a time, 32 slots per step, jumping from event to event; a
+// lane stops at its row's end or as soon as no later slot can change its
+// outputs.  A row is known by its end alone (the dense [Z, E] batch) or,
+// with ZONE_ROWS, is also cut at the first slot of another zone (the flat
+// stream).
 
 #pragma once
 
 namespace ptmt {
 
 constexpr int kDigitsPerLimb = 7;
+// slots a lane sweeps on its own before its warp finishes it
+constexpr int kSoloSlots = 32;
 
 template <int LMAX, bool WITH_TS = false>
 struct LaneState {
@@ -159,28 +163,6 @@ struct LaneState {
   }
 };
 
-// Sweep a seeded lane over slots [begin, end) of its zone row.  The row is
-// either known by its end alone (zone_id == nullptr: the dense [Z, E]
-// batch) or is the run of slots whose zone_id equals zid (the flat
-// stream), and the sweep then stops at the first slot of another zone.
-// It also stops as soon as the lane timed out or holds LMAX edges: after
-// either, no edge can change code, length or ts (a time-out only sets
-// `done`, which the outputs never read), so the cut is exact.  Invalid
-// (padding) slots gate nothing and are skipped.
-template <int LMAX, bool WITH_TS>
-__device__ __forceinline__ void sweep_row(
-    LaneState<LMAX, WITH_TS>& s, const int* __restrict__ u,
-    const int* __restrict__ v, const int* __restrict__ t,
-    const int* __restrict__ valid, const int* __restrict__ zone_id, int zid,
-    int begin, int end, int delta) {
-  if (s.length >= LMAX) return;
-  for (int j = begin; j < end; ++j) {
-    if (zone_id != nullptr && zone_id[j] != zid) break;
-    if (!valid[j]) continue;
-    if (!s.update(u[j], v[j], t[j], true, delta)) break;
-  }
-}
-
 // True when edge (u, v, t) of a valid slot changes an open lane (active,
 // length < LMAX): it times it out (t - last_t > delta) or extends it
 // (0 < t - last_t <= delta and u or v already in its node table).  Any
@@ -221,32 +203,48 @@ __device__ __forceinline__ void broadcast(LaneState<LMAX, WITH_TS>& c,
   }
 }
 
-// The sweep of sweep_row() for the 32 lanes of a warp, which must all call
-// it (converged).  A lane with `live` set is seeded and sweeps slots
-// [begin, end) of its row (absolute indices into u, v, t, valid); the
-// others only help.  Phase 1: each live lane applies at most W slots on
-// its own, as sweep_row() does.  Phase 2: the lanes still open (not timed
-// out, not full, slots left) are finished one at a time, in lane order: the
-// warp holds a copy of the lane's state, each lane tests one of the next 32
-// slots for an event (is_event), and the first event in slot order
-// (__ballot_sync, __ffs) is applied by every lane to its copy; the search
-// goes on after it until a time-out, a full lane or the row end.  Slots
-// that are no event change nothing, so this is the sequential sweep, slot
-// for slot, whether or not the row is sorted by time.  Invalid slots are
-// no event.
-template <int W, int LMAX, bool WITH_TS>
+// The row sweep for the 32 lanes of a warp, which must all call it
+// (converged).  A lane with `live` set is seeded and sweeps slots [begin,
+// end) of its row (absolute indices into u, v, t, valid); the others only
+// help.  Phase 1: each live lane applies at most W slots on its own.
+// Phase 2: the lanes still open (not timed out, not full, slots left) are
+// finished one at a time, in lane order: the warp holds a copy of the
+// lane's state, each lane tests one of the next 32 slots for an event
+// (is_event), and the first event in slot order (__ballot_sync, __ffs) is
+// applied by every lane to its copy; the search goes on after it until a
+// time-out, a full lane or the row end.  Slots that are no event change
+// nothing, so this is the sequential sweep, slot for slot, whether or not
+// the row is sorted by time.  Invalid slots are no event.  After a
+// time-out or at LMAX edges no edge can change code, length or ts (a
+// time-out only sets `done`, which the outputs never read), so the stop is
+// exact.
+//
+// ZONE_ROWS (the flat stream, where rows are runs of equal zone_id): the
+// row also ends at the first slot whose zone_id differs from the lane's
+// `zid`.  Phase 1 stops there; in a phase-2 step each lane also tests its
+// slot's zone_id, a second ballot gives the first slot past the row, and
+// only an event before that slot is applied.  Without it, zone_id and zid
+// are not read and the code is the dense kernel's.
+template <int W, int LMAX, bool WITH_TS, bool ZONE_ROWS = false>
 __device__ __forceinline__ void sweep_row_warp(
     LaneState<LMAX, WITH_TS>& s, bool live, const int* __restrict__ u,
     const int* __restrict__ v, const int* __restrict__ t,
     const int* __restrict__ valid, long long begin, long long end,
-    int delta) {
+    int delta, const int* __restrict__ zone_id = nullptr, int zid = 0) {
   constexpr unsigned kAll = 0xffffffffu;
   const int lane = threadIdx.x & 31;
   bool open = live && s.length < LMAX;
   long long j = begin;
   const long long stop = min(end, begin + W);
-  for (; open && j < stop; ++j)
+  for (; open && j < stop; ++j) {
+    if constexpr (ZONE_ROWS) {
+      if (zone_id[j] != zid) {
+        end = j;
+        break;
+      }
+    }
     if (valid[j]) open = s.update(u[j], v[j], t[j], true, delta);
+  }
   open = open && j < end;
   unsigned pending = __ballot_sync(kAll, open);
   while (pending) {
@@ -255,19 +253,32 @@ __device__ __forceinline__ void sweep_row_warp(
     LaneState<LMAX, WITH_TS> c;
     broadcast(c, s, owner);
     long long base = __shfl_sync(kAll, j, owner);
-    const long long row_end = __shfl_sync(kAll, end, owner);
+    long long row_end = __shfl_sync(kAll, end, owner);
+    int row_zid = 0;
+    if constexpr (ZONE_ROWS) row_zid = __shfl_sync(kAll, zid, owner);
     bool going = true;
     while (going && base < row_end) {
       const long long k = base + lane;
       int uk = 0, vk = 0, tk = 0;
-      bool event = false;
-      if (k < row_end && valid[k]) {
-        uk = u[k];
-        vk = v[k];
-        tk = t[k];
-        event = is_event(c, uk, vk, tk, delta);
+      bool event = false, past_row = false;
+      if (k < row_end) {
+        if constexpr (ZONE_ROWS) past_row = zone_id[k] != row_zid;
+        if (valid[k]) {
+          uk = u[k];
+          vk = v[k];
+          tk = t[k];
+          event = is_event(c, uk, vk, tk, delta);
+        }
       }
-      const unsigned hits = __ballot_sync(kAll, event);
+      unsigned hits = __ballot_sync(kAll, event);
+      if constexpr (ZONE_ROWS) {
+        const unsigned cut = __ballot_sync(kAll, past_row);
+        if (cut) {
+          const int first_out = __ffs(cut) - 1;
+          hits &= (1u << first_out) - 1u;
+          row_end = base + first_out;
+        }
+      }
       if (hits == 0) {
         base += 32;
         continue;

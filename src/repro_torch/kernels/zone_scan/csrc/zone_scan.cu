@@ -70,8 +70,6 @@
 namespace {
 
 constexpr int kThreads = 128;
-// slots a lane sweeps on its own before its warp finishes it
-constexpr int kSoloSlots = 32;
 
 template <int LMAX, bool WITH_TS>
 __global__ void __launch_bounds__(kThreads)
@@ -89,8 +87,8 @@ zone_scan_kernel(const int* __restrict__ u, const int* __restrict__ v,
 
   ptmt::LaneState<LMAX, WITH_TS> s{};  // unseeded: all-zero outputs
   if (live) s.seed(u[q], v[q], t[q]);
-  ptmt::sweep_row_warp<kSoloSlots>(s, live, u, v, t, valid, q + 1, row_end,
-                                   delta);
+  ptmt::sweep_row_warp<ptmt::kSoloSlots>(s, live, u, v, t, valid, q + 1,
+                                         row_end, delta);
   if (in_batch) s.store(q, code, length, ts);
 }
 

@@ -1,9 +1,10 @@
 """DCN-v2 ranking model [arXiv:2008.13535] + two-tower retrieval scoring.
 
 The hot path is the sparse embedding lookup: each of the sparse fields is
-one embedding bag, computed by the embedding-bag kernel's wrapper
-(:func:`repro_torch.kernels.embedding_bag.ops.embedding_bag`), so the
-device of the tensors chooses between the kernel and its plain version.
+one embedding bag, and one call of the embedding-bag kernel's grouped
+wrapper (:func:`repro_torch.kernels.embedding_bag.ops.embedding_bag_fields`)
+computes all of them and writes x0 with the dense columns, so the device
+of the tensors chooses between the kernel and its plain version.
 
 Structure (stacked DCN-v2): x0 = [dense || embedding bags] -> n cross layers
 ``x_{l+1} = x0 * (W x_l + b) + x_l`` -> deep MLP -> logit.
@@ -87,11 +88,12 @@ def embedding_bag(table, ids, weights):
 
 
 def interact_features(params, dense, sparse_ids, sparse_weights, cfg):
-    """Build x0 = [dense || n_sparse embedding bags]."""
-    bags = [embedding_bag(params["tables"][f"t{i}"], sparse_ids[:, i],
-                          sparse_weights[:, i])
-            for i in range(cfg.n_sparse)]
-    return torch.cat([dense] + bags, dim=-1)
+    """Build x0 = [dense || n_sparse embedding bags] (one kernel launch on
+    the card)."""
+    n = cfg.n_sparse
+    tables = [params["tables"][f"t{i}"] for i in range(n)]
+    return bag_ops.embedding_bag_fields(tables, sparse_ids[:, :n],
+                                        sparse_weights[:, :n], dense)
 
 
 def _mlp(params, h, cfg):

@@ -33,6 +33,7 @@ from repro_torch import configs
 from repro_torch.configs import gnn_common
 from repro_torch.core import convert
 from repro_torch.data import graph_data, graph_sampler, recsys_pipeline
+from repro_torch.kernels.embedding_bag import ops as bag_ops
 from repro_torch.models import gnn, params, recsys
 
 GNN_CASES = ["gin-tu", "gat-cora", "gatedgcn", "gcn"]
@@ -387,6 +388,45 @@ def test_models_on_gpu_match_cpu():
     got = recsys.forward({k: _to(v) for k, v in p.items()},
                          {k: v.cuda() for k, v in b.items()}, cfg)
     _close(got.cpu(), want.numpy())
+
+
+def test_dcn_x0_is_one_grouped_bag_call(monkeypatch):
+    """interact_features builds x0 with one call of the grouped embedding
+    bag over the first n_sparse fields (no per-field calls, no concat),
+    and it equals the per-field bags after the dense columns."""
+    _, cfg, _, p = _dcn()
+    _, b = _dcn_batch(cfg, 16, seed=4)
+    calls = []
+    orig = bag_ops.embedding_bag_fields
+    monkeypatch.setattr(bag_ops, "embedding_bag_fields",
+                        lambda *a: calls.append(a) or orig(*a))
+    x0 = recsys.interact_features(p, b["dense"], b["sparse_ids"],
+                                  b["sparse_weights"], cfg)
+    assert len(calls) == 1 and len(calls[0][0]) == cfg.n_sparse
+    want = torch.cat([b["dense"]] + [
+        recsys.embedding_bag(p["tables"][f"t{i}"], b["sparse_ids"][:, i],
+                             b["sparse_weights"][:, i])
+        for i in range(cfg.n_sparse)], dim=-1)
+    assert x0.shape == (16, cfg.d_interact) and torch.equal(x0, want)
+
+
+def test_dcn_forward_launches_one_bag_kernel_on_gpu():
+    """One B5 launch per forward, query embedding and retrieval step on
+    the card; skips on a host without one (chip_smoke.py counts them at
+    full width there)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py counts the launches")
+    _, cfg, _, p = _dcn()
+    _, b = _dcn_batch(cfg, 32)
+    p, b = _to(p), {k: v.cuda() for k, v in b.items()}
+    cand = torch.arange(100, dtype=torch.int32, device="cuda")
+    for run in (lambda: recsys.forward(p, b, cfg),
+                lambda: recsys.query_embedding(p, b, cfg),
+                lambda: recsys.retrieval_step(p, b, cand, cfg, top_k=5)):
+        bag_ops.reset_launches()
+        run()
+        assert bag_ops.launches == {"embedding_bag": 0,
+                                    "embedding_bag_fields": 1}
 
 
 def _to(x):

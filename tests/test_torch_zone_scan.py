@@ -2,6 +2,9 @@
 against the JAX package's lowerings, slot for slot (tolerance 0: every
 output is int32)."""
 
+import os
+import sys
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,6 +18,15 @@ from repro_torch.core import encoding as t_encoding
 from repro_torch.core import planner as t_planner
 from repro_torch.kernels.zone_scan import ops, ref
 from torch_corpus import CASE_IDS, CASES, to_torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+import chip_smoke  # noqa: E402  (the flat adversarial layout of the card run)
+
+#: the flat kernel's solo slots (kSoloSlots) and its adversarial layout at
+#: a small size: rows of 520 slots, blocks of 256
+SOLO = chip_smoke.SOLO_SLOTS
+ADV_DELTA = 1000
 
 
 def _flat(case, bounds, blk=512):
@@ -148,3 +160,80 @@ def test_kernel_matches_plain_on_gpu():
             p_code, p_len = ref.fused_zone_scan_torch(
                 *args, delta=delta, l_max=l_max, blk=fl.blk)
             assert torch.equal(code, p_code) and torch.equal(length, p_len)
+
+
+def _adversarial():
+    return chip_smoke.adversarial_flat(SOLO, e_cap=520, blk=256)
+
+
+def test_adversarial_flat_layout_has_its_cases():
+    """Zone ends inside warps and at the solo/cooperative boundary, a row
+    ending on the stream pad inside a warp, and a block whose hi cuts a
+    row: the cases the flat kernel's row ends must meet."""
+    fl = _adversarial()
+    zid = fl.zone_id
+    starts = np.flatnonzero(np.diff(zid) != 0) + 1      # first slot of a row
+    assert (starts % 32 != 0).sum() > 10                 # ends inside warps
+    lengths = np.diff(np.concatenate([[0], starts]))
+    for n in (SOLO, SOLO + 1, SOLO + 2):                 # lane 0 meets its end
+        assert (lengths == n).any()                      # at W, W+1, W+2
+    warps = zid[:(zid.size // 32) * 32].reshape(-1, 32)
+    assert (np.array([np.unique(w).size for w in warps]) >= 3).any()
+    n_real = int((zid >= 0).sum())
+    assert zid[n_real:].size and (zid[n_real:] == -1).all()
+    assert not fl.valid[n_real:].any() and n_real % 32 != 0
+    # a live block whose window ends inside a row of its own lanes
+    cut = [i for i, (lo, hi) in enumerate(zip(fl.lo, fl.hi))
+           if lo < hi < n_real and hi == lo + fl.blk
+           and zid[hi - 1] == zid[hi]]
+    assert cut, "no block's hi cuts a row"
+
+
+def _adv_args(fl):
+    return to_torch(*_arrays(fl))
+
+
+@pytest.mark.parametrize("with_ts", [False, True])
+@pytest.mark.parametrize("l_max", [6, 3])
+def test_plain_matches_xla_on_adversarial_flat(l_max, with_ts):
+    fl = _adversarial()
+    got = ref.fused_zone_scan_torch(*_adv_args(fl), delta=ADV_DELTA,
+                                    l_max=l_max, blk=fl.blk, with_ts=with_ts)
+    want = fused_zone_scan_xla(*(jnp.asarray(a) for a in _arrays(fl)),
+                               delta=ADV_DELTA, l_max=l_max, blk=fl.blk,
+                               with_ts=with_ts)
+    assert len(got) == len(want) == (3 if with_ts else 2)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert (got[1].numpy() > 1).sum() > 100     # lanes that extend
+
+
+@pytest.mark.parametrize("with_ts", [False, True])
+def test_plain_matches_pallas_interpret_on_adversarial_flat(with_ts):
+    """The TPU kernel itself, run by the Pallas interpreter."""
+    fl = _adversarial()
+    got = ref.fused_zone_scan_torch(*_adv_args(fl), delta=ADV_DELTA,
+                                    l_max=6, blk=fl.blk, with_ts=with_ts)
+    want = jax_ops.scan_flat(*(jnp.asarray(a) for a in _arrays(fl)),
+                             delta=ADV_DELTA, l_max=6, blk=fl.blk,
+                             interpret=True, with_ts=with_ts)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_kernel_matches_plain_on_adversarial_flat_on_gpu():
+    """The CUDA kernel's row ends against its plain version on the card;
+    skips on a host without one (chip_smoke.py runs the same check at
+    rows of 2,600 slots)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py covers the kernel")
+    fl = _adversarial()
+    args = [x.cuda() for x in _adv_args(fl)]
+    for l_max in (6, 3):
+        for with_ts in (False, True):
+            got = ops.launch_kernel(*args, delta=ADV_DELTA, l_max=l_max,
+                                    blk=fl.blk, with_ts=with_ts)
+            want = ref.fused_zone_scan_torch(*args, delta=ADV_DELTA,
+                                             l_max=l_max, blk=fl.blk,
+                                             with_ts=with_ts)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
