@@ -66,10 +66,30 @@ launch, and checks them:
     against the CPU; one B5 launch per forward; B5 and its library calls
     are timed by replaying a CUDA graph of 20 calls (device time, without
     the wrappers' host time, which a call at ``serve_p99`` exceeds);
-11. one JSON line naming every kernel with its launches, error and times;
-12. last line: ``{"ok": true, "device": {...}}``.
+11. streaming at full size: ``engine.stream()`` fed by ``replay_stream`` in
+    4,096-edge chunks; the snapshots at 25%, 50% and 75% of the stream
+    equal ``discover`` on their closed prefixes and the final one the
+    fused ``discover``; the same replay with ``fused="off"`` (B3) gives the
+    same counts; a ``state_dict`` taken at 50% and restored into a fresh
+    miner ends at the same counts (its replay profiled for the card's
+    busy share); ingest edges/s, per-chunk p50/p99/max, zones finalized,
+    and a cold snapshot split into mine and decode;
+12. serving at full size: ``serve_motifs``'s single-service workload (4
+    tenants strided from the graph, 2,048-edge chunks, admission batch
+    8,192, 4 queries per chunk in its fixed mix), its ``--verify`` check,
+    ``comine`` over ``{600, 300} x {6, 4}`` against phase 6's four
+    ``discover`` calls (one B1-ts launch), one tenant's first query of an
+    epoch mining beside another tenant's ingest in two threads, then
+    cluster mode: 2 workers with a temporary checkpoint directory, the
+    owner of ``tenant0`` killed after half of each stream, its tenants
+    restored from their checkpoints on the survivor, the streams finished
+    (counts equal to the single service's), and a cold restart from the
+    store (the same counts again);
+13. one JSON line naming every kernel with its launches, error and times;
+14. last line: ``{"ok": true, "device": {...}}``.
 
-Every path of phases 5-7, 9 and 10 runs with the kernels' launch counts
+Every path of phases 5-7 and 9-12 (but for phase 12's threaded check)
+runs with the kernels' launch counts
 set to 0 just before it and read just after; a kernel its path should
 launch but did not (or, where a count is set, launched another number of
 times) fails the run.  Matmuls run in full float32: TF32 is switched off
@@ -143,6 +163,11 @@ GNN_TOL, DCN_TOL = 1e-4, 1e-5
 TOP_K = 100
 # B4's hot segment at size: rows, segments, width (80% of rows in one)
 HOT_SEGMENT = (10_000_000, 100_000, 64)
+# streaming and serving at full size (phases 11-12): the stream's chunk;
+# tenants strided from the graph, their arrival chunk, admission batch and
+# queries per chunk (``serve_motifs``'s defaults)
+STREAM_CHUNK = 4096
+SERVE_TENANTS, SERVE_CHUNK, SERVE_BATCH, SERVE_QUERIES = 4, 2048, 8192, 4
 
 
 def log(msg: str) -> None:
@@ -1385,6 +1410,340 @@ def dcn_serving(bound):
     return launches, errs, timing
 
 
+# -- streaming and serving (phases 11-12) ----------------------------------
+
+def edge_range(graph, lo: int, hi: int):
+    """Edges ``[lo, hi)`` of ``graph`` as a graph of their own."""
+    from repro_torch.core.temporal_graph import TemporalGraph
+
+    return TemporalGraph(u=graph.u[lo:hi], v=graph.v[lo:hi],
+                         t=graph.t[lo:hi], n_nodes=graph.n_nodes)
+
+
+def closed_prefix(graph, closed_time: int):
+    """The edges of ``graph`` with ``t < closed_time``."""
+    return edge_range(graph, 0, int(np.searchsorted(graph.t, closed_time,
+                                                    side="left")))
+
+
+def timed_snapshot(miner):
+    """One cold (first of its epoch) ``miner.snapshot()``: ``(result, wall
+    ms, decode ms)``.  The decode of the tail's count rows into strings is
+    timed after a synchronize, so the mine (plan, layout, kernel, fold) is
+    the wall time less the decode."""
+    import torch
+    from repro_torch.core import transitions
+
+    orig, spent = transitions.device_counts_to_dict, []
+
+    def decode(counts):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(counts)
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    transitions.device_counts_to_dict = decode
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snap = miner.snapshot()
+        wall = time.perf_counter() - t0
+    finally:
+        transitions.device_counts_to_dict = orig
+    return snap, wall * 1e3, sum(spent) * 1e3
+
+
+def stream_replay(miner, graph, bounds):
+    """``graph`` through ``miner`` by ``replay_stream`` in STREAM_CHUNK
+    chunks, one call per span of ``bounds``, with a snapshot at each inner
+    bound (the middle one timed cold, mine against decode) and the
+    miner's state at the middle one; then the final snapshot."""
+    from repro_torch.core.streaming import replay_stream
+
+    lat, secs, snaps, state, split = [], 0.0, [], None, None
+    middle = len(bounds) // 2
+    for k, (a, b) in enumerate(zip(bounds[:-1], bounds[1:]), start=1):
+        part, s = replay_stream(miner, edge_range(graph, a, b), STREAM_CHUNK)
+        lat += part
+        secs += s
+        if k == len(bounds) - 1:
+            break
+        if k == middle:
+            snap, wall_ms, decode_ms = timed_snapshot(miner)
+            split = (wall_ms, decode_ms)
+            state = miner.state_dict()
+        else:
+            snap = miner.snapshot()
+        snaps.append((b, miner.closed_time, snap.counts))
+    return lat, secs, snaps, state, split, miner.snapshot(final=True)
+
+
+def streaming_phase(engine, graph, full_counts) -> dict:
+    """Phase 11: ``engine.stream()`` over the full-size graph in 4,096-edge
+    chunks; each quartile's snapshot equals ``discover`` on the closed
+    prefix, the final one the fused ``discover`` of the whole graph; the
+    same replay with ``fused="off"`` (B3) gives the same counts; a state
+    taken at 50% and restored into a fresh miner ends at the same final
+    counts.  Returns the counted replays' launches."""
+    from repro_torch.core import MiningConfig, PTMTEngine
+    from repro_torch.obs.timing import latency_summary
+
+    n = graph.n_edges
+    bounds = [0, *(k * n // 4 // STREAM_CHUNK * STREAM_CHUNK
+                   for k in (1, 2, 3)), n]
+    miner = engine.stream()
+    (lat, secs, snaps, state, split, final), _, counts = run_counted(
+        "stream fused", lambda: stream_replay(miner, graph, bounds),
+        {"fused_zone_scan_flat": None})
+    launches = {"fused_zone_scan_flat": counts["fused_zone_scan_flat"]}
+    for edges, closed, got in snaps:
+        want = engine.discover(closed_prefix(graph, closed)).counts
+        if got != want:
+            raise SystemExit(f"stream: snapshot after {edges} edges != "
+                             f"discover on its closed prefix")
+    if final.counts != full_counts:
+        raise SystemExit("stream: final snapshot != fused discover")
+    digest = latency_summary(lat)
+    log(f"[stream] {len(lat)} chunks of {STREAM_CHUNK} edges: "
+        f"{n / secs:.0f} edges/s ingest, chunk p50 {digest['p50_ms']:.3f} "
+        f"p99 {digest['p99_ms']:.3f} max {digest['max_ms']:.3f} ms; "
+        f"{miner.n_zones_finalized} zones finalized, "
+        f"{miner.n_edges_retired} edges retired; B1 launches "
+        f"{launches['fused_zone_scan_flat']}; snapshots at "
+        f"{[s[0] for s in snaps]} edges == discover on the closed prefix, "
+        f"final == fused discover ({len(final.counts)} codes)")
+    log(f"[stream] cold snapshot at {bounds[2]} edges: {split[0]:.3f} ms, "
+        f"mine {split[0] - split[1]:.3f} ms, decode {split[1]:.3f} ms "
+        f"({miner.last_tail_layout['n_zones']} tail zones)")
+
+    off = PTMTEngine(MiningConfig(backend="cuda", fused="off",
+                                  **FULL_PARAMS), device=DEVICE).stream()
+    (lat, secs, snaps_off, _, _, final_off), _, counts = run_counted(
+        "stream fused=off", lambda: stream_replay(off, graph, bounds),
+        {"zone_scan_dense": None})
+    launches["zone_scan_dense"] = counts["zone_scan_dense"]
+    if [s[2] for s in snaps_off] != [s[2] for s in snaps] \
+            or final_off.counts != full_counts:
+        raise SystemExit("stream fused='off': counts differ from the fused "
+                         "replay")
+    log(f"[stream] fused='off' replay == fused replay at every snapshot and "
+        f"at the end; {n / secs:.0f} edges/s, B3 launches "
+        f"{launches['zone_scan_dense']}")
+
+    restored = engine.stream()
+    restored.restore_state(state)
+    rest = edge_range(graph, bounds[2], n)
+    from repro_torch.core.streaming import replay_stream
+
+    profiled("stream", f"replay of the last {rest.n_edges} edges after a "
+             "restore", lambda: replay_stream(restored, rest, STREAM_CHUNK))
+    if restored.snapshot(final=True).counts != full_counts:
+        raise SystemExit("stream: restored miner's final counts differ")
+    log(f"[stream] state at {bounds[2]} edges restored into a fresh miner, "
+        f"fed the rest: final counts == the uninterrupted replay's")
+    return launches
+
+
+def serving_phase(engine, graph, solo) -> dict:
+    """Phase 12: ``serve_motifs``'s single-service workload (4 tenants
+    strided from the full-size graph), ``--verify``'s check, co-mining
+    over {600, 300} x {6, 4}, a threaded first query of an epoch beside
+    another tenant's ingest, then cluster mode with a failover and a cold
+    restart.  Returns the counted runs' launches."""
+    import tempfile
+    import threading
+
+    from repro_torch.launch import serve_motifs as sm
+    from repro_torch.serving.cluster import ClusterCoordinator
+    from repro_torch.serving.motif import MotifService, QueryRequest
+
+    names = [f"tenant{i}" for i in range(SERVE_TENANTS)]
+    streams = sm.tenant_streams(graph, SERVE_TENANTS)
+    service = MotifService(engine=engine, ingest_batch=SERVE_BATCH)
+    for name in names:
+        service.create_session(name)
+
+    def workload():
+        t0 = time.perf_counter()
+        out = sm.run_workload(service, streams, names,
+                              chunk_edges=SERVE_CHUNK,
+                              queries_per_chunk=SERVE_QUERIES, seed=0)
+        return out, time.perf_counter() - t0
+
+    ((ingest_lat, query_lat, first_lat), wall), _, counts = run_counted(
+        "serve", workload, {"fused_zone_scan_flat": None})
+    launches = {"fused_zone_scan_flat": counts["fused_zone_scan_flat"]}
+    report = sm.build_report(service, names, graph.n_edges, wall,
+                             ingest_lat, query_lat, first_lat)
+    log(f"[serve] {SERVE_TENANTS} tenants, chunk {SERVE_CHUNK}, admission "
+        f"{SERVE_BATCH}, {SERVE_QUERIES} queries per chunk: "
+        f"{report['ingest_edges_per_s']:.0f} edges/s, ingest p50 "
+        f"{report['ingest_p50_ms']:.3f} p99 {report['ingest_p99_ms']:.3f} "
+        f"ms; {report['queries']} steady queries p50 "
+        f"{report['query_p50_ms']:.3f} p99 {report['query_p99_ms']:.3f} ms; "
+        f"{report['first_calls']} first calls (max "
+        f"{report['first_call_max_ms']:.3f} ms); cache hit rate "
+        f"{report['cache_hit_rate']:.3f}, {report['snapshots_mined']} "
+        f"snapshots mined; B1 launches {launches['fused_zone_scan_flat']}")
+    for op, row in report["per_op"].items():
+        log(f"  {op}: n={row['count']} p50 {row['p50_ms']:.3f} ms, p99 "
+            f"{row['p99_ms']:.3f} ms")
+    for row in sm.verify_against_batch(
+            service, names, streams, delta=FULL_PARAMS["delta"],
+            l_max=FULL_PARAMS["l_max"], omega=FULL_PARAMS["omega"],
+            backend="cuda", device=DEVICE):
+        if row["match"] is not True:
+            raise SystemExit(f"serve: {row['tenant']} != discover on its "
+                             f"closed prefix ({row})")
+    served = {name: service.manager.get(name).engine().result.counts
+              for name in names}
+    log(f"[serve] --verify: every tenant == discover on its closed prefix "
+        f"({', '.join(str(len(c)) for c in served.values())} codes)")
+
+    comine = MotifService(engine=engine, ingest_batch=SERVE_BATCH)
+    for d, lm in COMINE:
+        comine.create_session(f"d{d}-l{lm}", delta=d, l_max=lm)
+    results, dt, counts = run_counted(
+        "serve comine", lambda: comine.comine(graph),
+        {"fused_zone_scan_flat_ts": 1})
+    launches["fused_zone_scan_flat_ts"] = counts["fused_zone_scan_flat_ts"]
+    for (d, lm), want in zip(COMINE, solo):
+        if results[f"d{d}-l{lm}"].counts != want.counts:
+            raise SystemExit(f"serve comine: {d}/{lm} != its discover")
+    log(f"[serve] comine over {COMINE} == 4 independent discover, one B1-ts "
+        f"launch, {dt:.3f}s")
+
+    # one tenant's first query of an epoch mines (outside its session's
+    # lock) while another tenant ingests and finalizes, on one executor
+    threaded = MotifService(engine=engine, ingest_batch=SERVE_BATCH)
+    (a, ga), (b, gb) = zip(names[:2], streams[:2])
+    half = ga.n_edges // 2
+    for name, g in ((a, ga), (b, gb)):
+        threaded.create_session(name)
+        threaded.ingest(name, g.u[:half], g.v[:half], g.t[:half])
+        threaded.flush(name)
+    miner_b = threaded.manager.get(b).miner
+    mine_b, in_mine, ingesting, errors = miner_b.mine_view, \
+        threading.Event(), threading.Event(), []
+
+    def held(view):
+        in_mine.set()
+        if not ingesting.wait(120):
+            raise RuntimeError("the ingest thread never started")
+        return mine_b(view)
+
+    def query():
+        try:
+            threaded.query(QueryRequest(session=b, op="total"))
+        except Exception as exc:        # reported below, fails the run
+            errors.append(exc)
+
+    def ingest():
+        try:
+            if not in_mine.wait(120):
+                raise RuntimeError("the query never reached its mine")
+            ingesting.set()
+            threaded.ingest(a, ga.u[half:], ga.v[half:], ga.t[half:])
+            threaded.flush(a)
+        except Exception as exc:        # reported below, fails the run
+            errors.append(exc)
+
+    miner_b.mine_view = held
+    threads = [threading.Thread(target=query),
+               threading.Thread(target=ingest)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    miner_b.mine_view = mine_b
+    if errors or any(t.is_alive() for t in threads):
+        raise SystemExit(f"serve threaded: {errors or 'a thread hung'}")
+    for name, g in ((a, ga), (b, gb)):
+        sess = threaded.manager.get(name)
+        want = engine.discover(closed_prefix(g, sess.closed_time)).counts
+        if sess.engine().result.counts != want:
+            raise SystemExit(f"serve threaded: {name} != discover on its "
+                             "closed prefix")
+    log(f"[serve] threaded: {b}'s first query of an epoch mined while {a} "
+        f"ingested {ga.n_edges - half} edges ({time.perf_counter() - t0:.3f}"
+        f"s); both == discover on their closed prefixes")
+
+    with tempfile.TemporaryDirectory() as ckdir:
+        def coordinator():
+            return ClusterCoordinator(
+                2, config=engine.config, checkpoint_dir=ckdir,
+                ingest_batch=SERVE_BATCH, device=DEVICE)
+
+        co = coordinator()
+        for name in names:
+            co.create_tenant(name)
+            co.checkpoint(name, {"offset": 0})
+        halves = [edge_range(g, 0, g.n_edges // 2) for g in streams]
+        cluster = dict(chunk_edges=SERVE_CHUNK, queries_per_chunk=1,
+                       checkpoint_every=SERVE_BATCH)
+        t0 = time.perf_counter()
+        first, _, counts = run_counted(
+            "cluster first half", lambda: sm.run_cluster_workload(
+                co, halves, names, **cluster),
+            {"fused_zone_scan_flat": None})
+        launches["fused_zone_scan_flat"] += counts["fused_zone_scan_flat"]
+        victim = co.owner_of(names[0])
+        t1 = time.perf_counter()
+        recovered = co.kill_worker(victim)
+        failover_ms = (time.perf_counter() - t1) * 1e3
+        rewound = {t: int(m["offset"]) for t, m in recovered.items()}
+        offsets = {**first["offsets"], **rewound}
+        second, _, counts = run_counted(
+            "cluster after failover", lambda: sm.run_cluster_workload(
+                co, streams, names, offsets=offsets, seed=1, **cluster),
+            {"fused_zone_scan_flat": None})
+        launches["fused_zone_scan_flat"] += counts["fused_zone_scan_flat"]
+        co.flush_all()
+        wall = time.perf_counter() - t0
+        for name in names:
+            if sm.tenant_counts(co, name) != served[name]:
+                raise SystemExit(f"cluster: {name} after failover != the "
+                                 "uninterrupted service's counts")
+        run = {k: first[k] + second[k] for k in (
+            "ingest_lat", "edges_fed", "throttle_events",
+            "checkpoints_written")}
+        run["query_lat"] = {op: first["query_lat"][op]
+                            + second["query_lat"][op]
+                            for op in first["query_lat"]}
+        run["first_call_lat"] = {op: first["first_call_lat"][op]
+                                 + second["first_call_lat"][op]
+                                 for op in first["first_call_lat"]}
+        rep = sm.build_cluster_report(co, names, run, graph.n_edges, wall,
+                                      mode="failover")
+        log(f"[cluster] 2 workers, {victim} killed after half of each "
+            f"stream: {sorted(recovered)} restored in {failover_ms:.3f} ms "
+            f"and rewound to {rewound}; "
+            f"{rep['edges_fed']} edges fed, {rep['ingest_edges_per_s']:.0f} "
+            f"edges/s, ingest p50 {rep['ingest_p50_ms']:.3f} p99 "
+            f"{rep['ingest_p99_ms']:.3f} ms, query p50 "
+            f"{rep['query_p50_ms']:.3f} p99 {rep['query_p99_ms']:.3f} ms, "
+            f"cache hit rate {rep['cache_hit_rate']:.3f}, "
+            f"{rep['checkpoints_written']} checkpoints, "
+            f"{rep['snapshots_mined']} snapshots mined; every tenant == the "
+            "uninterrupted service's counts")
+        co.checkpoint_all({n: {"offset": second["offsets"][n]}
+                           for n in names})
+        t1 = time.perf_counter()
+        cold = coordinator()
+        back = cold.restore_all()
+        restart_ms = (time.perf_counter() - t1) * 1e3
+        for name, g in zip(names, streams):
+            if back[name]["offset"] != g.n_edges or \
+                    sm.tenant_counts(cold, name) != served[name]:
+                raise SystemExit(f"cluster: {name} after a cold restart "
+                                 "!= the uninterrupted service's counts")
+        log(f"[cluster] cold restart from the store: {len(back)} tenants in "
+            f"{restart_ms:.3f} ms, counts byte for byte the service's")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1762,7 +2121,21 @@ def main() -> int:
         errs[name] = max(errs[name], err)
     log(f"[dcn] phase {time.perf_counter() - t_phase:.1f}s")
 
-    # -- 11. kernels ----------------------------------------------------
+    # -- 11. streaming ---------------------------------------------------
+    t_phase = time.perf_counter()
+    stream_launches = streaming_phase(engine, graph, fused_res.counts)
+    log(f"[stream] phase {time.perf_counter() - t_phase:.1f}s")
+
+    # -- 12. serving -----------------------------------------------------
+    t_phase = time.perf_counter()
+    serve_launches = serving_phase(engine, graph, solo)
+    log(f"[serve] phase {time.perf_counter() - t_phase:.1f}s")
+    launches += stream_launches["fused_zone_scan_flat"] \
+        + serve_launches["fused_zone_scan_flat"]
+    flat_ts_launches += serve_launches["fused_zone_scan_flat_ts"]
+    dense_launches += stream_launches["zone_scan_dense"]
+
+    # -- 13. kernels ----------------------------------------------------
     rows = (
         ("fused_zone_scan_flat", SRC + "fused_zone_scan.cu", TPU + ":429",
          launches),

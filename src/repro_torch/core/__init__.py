@@ -16,6 +16,7 @@ from .backends import available_backends, get_backend, register_backend
 from .config import MiningConfig
 from .engine import EngineStats, PTMTEngine
 from .executor import MiningExecutor, ZoneChunkError, ZoneOverflowError
+from .streaming import StreamingMiner
 from .temporal_graph import TemporalGraph, from_edges
 
 __all__ = [
@@ -24,6 +25,7 @@ __all__ = [
     "MiningConfig",
     "MiningExecutor",
     "PTMTEngine",
+    "StreamingMiner",
     "TemporalGraph",
     "ZoneChunkError",
     "ZoneOverflowError",

@@ -9,7 +9,11 @@ parallel, aggregate, encode.  :class:`PTMTEngine` is its single factory:
   Phase-1 sweep;
 * ``engine.sequential(graph)``  — the TMC-analog baseline (one zone, built
   through :func:`repro_torch.core.tzp.single_zone_plan` — no hand-rolled
-  pad), on the engine's own backend.
+  pad), on the engine's own backend;
+* ``engine.stream()``           — a :class:`repro_torch.core.streaming.
+  StreamingMiner` sharing this engine's executor (and so its device);
+* serving sessions take the engine whole: ``MotifSession(name,
+  engine=engine)``.
 
 The engine resolves the backend and the device **once** (at construction,
 via the executor), owns the capacity planner (budget-derived plans are
@@ -17,7 +21,7 @@ memoized per batch geometry), and memoizes zone plans per graph
 fingerprint, so repeated ``discover`` on the same stream skips
 Algorithm 1.  ``engine.stats`` exposes the counters.
 
-Streaming and sharded mining are later slices of the port (ROADMAP).
+Sharded mining is a later slice of the port (ROADMAP slice 6).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from . import planner, tzp
 from .api import DiscoveryResult, counts_to_result
 from .config import MiningConfig
 from .executor import MiningExecutor
+from .streaming import StreamingMiner
 from .temporal_graph import TemporalGraph
 
 __all__ = ["EngineStats", "PTMTEngine"]
@@ -47,6 +52,7 @@ class EngineStats:
     discover_many_calls: int = 0    # co-mined multi-config discover calls
     comined_configs: int = 0        # member configs served by shared sweeps
     sequential_calls: int = 0
+    stream_sessions: int = 0
     plan_cache_hits: int = 0        # discover calls that skipped plan_zones
     plan_cache_misses: int = 0      # discover calls that ran Algorithm 1
     zones_mined: int = 0
@@ -288,3 +294,19 @@ class PTMTEngine:
             delta=self.config.delta, l_max=self.config.l_max,
             layout=layout.summary(),
         )
+
+    # -- streaming ----------------------------------------------------------
+
+    def stream(self, **overrides) -> StreamingMiner:
+        """A fresh :class:`StreamingMiner` bound to this engine's config.
+
+        Without overrides the miner shares this engine's executor; with
+        overrides a derived config (and executor) is built for the miner
+        alone, on this engine's device.
+        """
+        self.stats.stream_sessions += 1
+        if overrides:
+            return StreamingMiner(config=self.config.with_updates(
+                **overrides), device=self.device, obs=self.obs)
+        return StreamingMiner(config=self.config, executor=self.executor,
+                              obs=self.obs)

@@ -75,16 +75,17 @@ FUSED_MODES = ("auto", "on", "off")
 def resolve_device(device=None) -> torch.device:
     """The device a run uses: ``device`` when given, else CUDA.
 
-    Raises ``RuntimeError`` when no device was asked for and PyTorch sees
-    no CUDA device — a run never carries on on the CPU unasked.
+    Raises ``RuntimeError`` when the run would use CUDA (no device asked
+    for, or a CUDA device asked for) and PyTorch sees no CUDA device — a
+    run never carries on on the CPU unasked, and fails here rather than
+    at its first tensor.
     """
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
+    resolved = torch.device("cuda" if device is None else device)
+    if resolved.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run on "
             "the CPU")
-    return torch.device("cuda")
+    return resolved
 
 
 class RunOutcome(NamedTuple):

@@ -21,7 +21,8 @@ Two paths, two sets of terms:
   JAX package's arithmetic term for term (its sort model of a count table
   included), so a budget derives the same chunks, merge caps — and hence
   the same launches and spill retries — as the reference for the same
-  memory model.
+  memory model.  :func:`suggest_e_cap` answers the inverse question: the
+  largest zone capacity a budget holds.
 
 :func:`fused_sweep_slots` / :func:`padded_sweep_slots` are the dispatched
 sweep-work models of the two layouts, and the **config lattice**
@@ -422,3 +423,28 @@ def comine_peak_bytes(zone_chunk: int, e_cap: int, l_max_dom: int, *,
     worst = max(merge_caps, default=0)
     return scan_state + carry + _sorted_table_bytes(
         worst + zone_chunk * e_cap, l_max_dom)
+
+
+def suggest_e_cap(
+    *,
+    l_max: int,
+    memory_budget_mb: float,
+    zone_chunk: int = 1,
+    mem_model: Callable[[int, int], int] | None = None,
+    pad_edges_to: int = 8,
+) -> int:
+    """Largest power-of-two zone edge capacity whose per-bucket
+    hierarchical peak fits the budget with ``zone_chunk`` zones in flight
+    (how dense a zone the device can hold at all)."""
+    if memory_budget_mb <= 0:
+        raise ValueError("memory_budget_mb must be > 0")
+    budget = int(memory_budget_mb * 2**20)
+    e = pad_edges_to
+    while hierarchical_peak_bytes(
+            zone_chunk, e * 2, l_max,
+            merge_cap=default_merge_cap(zone_chunk, e * 2),
+            mem_model=mem_model) <= budget:
+        e *= 2
+        if e >= 1 << 24:        # 16M edges per zone: beyond any real batch
+            break
+    return e

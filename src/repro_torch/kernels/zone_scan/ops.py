@@ -20,6 +20,7 @@ kernel launches per variant and nothing else.
 from __future__ import annotations
 
 import ctypes
+import threading
 from pathlib import Path
 
 import torch
@@ -41,6 +42,14 @@ VARIANTS = ("fused_zone_scan_flat", "fused_zone_scan_flat_ts",
 #: kernel launches per variant since the last :func:`reset_launches` (plain
 #: integers, so a run can show that its path went through each kernel)
 launches = dict.fromkeys(VARIANTS, 0)
+# serving sessions mine from several threads at once (a first query of an
+# epoch mines outside its session's lock), so a count is bumped under a lock
+_launches_lock = threading.Lock()
+
+
+def _count_launch(name: str) -> None:
+    with _launches_lock:
+        launches[name] += 1
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: C function name -> (source, argtypes)
@@ -122,8 +131,8 @@ def launch_kernel(u, v, t, valid, zone_id, lo, hi, *, delta: int,
             zone_id.data_ptr(), hi.data_ptr(), code.data_ptr(),
             length.data_ptr(), _ptr(ts), s_pad, blk, int(delta), int(l_max),
             int(with_ts))
-    launches["fused_zone_scan_flat_ts" if with_ts
-             else "fused_zone_scan_flat"] += 1
+    _count_launch("fused_zone_scan_flat_ts" if with_ts
+                  else "fused_zone_scan_flat")
     return (code, length, ts) if with_ts else (code, length)
 
 
@@ -178,7 +187,7 @@ def launch_zone_kernel(u, v, t, valid, *, delta: int, l_max: int,
             u.data_ptr(), v.data_ptr(), t.data_ptr(), valid.data_ptr(),
             code.data_ptr(), length.data_ptr(), _ptr(ts), z, e, int(delta),
             int(l_max), int(with_ts))
-    launches["zone_scan_dense_ts" if with_ts else "zone_scan_dense"] += 1
+    _count_launch("zone_scan_dense_ts" if with_ts else "zone_scan_dense")
     return ZoneResult(code=code, length=length, ts=ts)
 
 

@@ -14,9 +14,17 @@ live.
 
 ``--check-sequential`` runs the sequential baseline on the same engine,
 so on its own backend (``cuda``: one launch of the dense kernel over the
-whole stream).  ``--stream`` is ROADMAP slice 4 and raises.
+whole stream).
 
-``--out-json FILE`` writes the end-of-run summary.
+``--stream --chunk-edges N`` replays the dataset as an incremental stream
+through ``engine.stream()`` (per-chunk latency + sustained edges/sec);
+combine with ``--check-sequential`` to verify the final snapshot against
+the sequential baseline.
+
+Batch and stream runs emit the same end-of-run summary, and ``--out-json
+FILE`` writes it with one schema for both modes: the JAX package's keys
+(stream-only frontier stats under ``stream``, ``null`` for batch runs)
+plus ``device``.
 """
 
 from __future__ import annotations
@@ -27,7 +35,9 @@ import time
 
 import repro_torch.obs as obs_mod
 from repro_torch.core import MiningConfig, PTMTEngine
+from repro_torch.core.streaming import replay_stream
 from repro_torch.data import synthetic_graphs
+from repro_torch.obs.timing import latency_summary
 
 
 def _print_result(res, dt: float, label: str) -> None:
@@ -51,9 +61,11 @@ def _print_result(res, dt: float, label: str) -> None:
             print(f"    -> {ccode}: {ccount} ({cshare:.1%})")
 
 
-def _summary(args, config: MiningConfig, graph, res, dt: float) -> dict:
+def _summary(args, config: MiningConfig, graph, res, dt: float, mode: str,
+             stream_stats: dict | None) -> dict:
+    """One schema for batch and stream runs (``stream`` is null for batch)."""
     return {
-        "mode": "batch",
+        "mode": mode,
         "dataset": args.dataset,
         "seed": args.seed,
         "device": args.device,
@@ -72,7 +84,41 @@ def _summary(args, config: MiningConfig, graph, res, dt: float) -> dict:
             str(k): v for k, v in sorted(res.level_histogram().items())
         },
         "counts": res.counts,
+        "stream": stream_stats,
     }
+
+
+def _run_stream(args, engine: PTMTEngine, graph):
+    if args.chunk_edges < 1:
+        raise SystemExit("--chunk-edges must be >= 1")
+    miner = engine.stream()
+    chunk = args.chunk_edges
+    latencies, dt = replay_stream(miner, graph, chunk)
+    res = miner.snapshot(final=True)
+    digest = latency_summary(latencies)
+    stream_stats = {
+        "chunk_edges": chunk,
+        "chunks": digest["count"],
+        "mean_chunk_ms": digest["mean_ms"],
+        "max_chunk_ms": digest["max_ms"],
+        "p50_chunk_ms": digest["p50_ms"],
+        "p99_chunk_ms": digest["p99_ms"],
+        "zones_finalized": miner.n_zones_finalized,
+        "edges_retired": miner.n_edges_retired,
+        "buffered_edges": miner.buffered_edges,
+        "epoch": miner.epoch,
+    }
+    if latencies:
+        print(f"stream: {len(latencies)} chunks of {chunk} edges, "
+              f"{graph.n_edges / dt:.0f} edges/s sustained, "
+              f"per-chunk latency "
+              f"mean {stream_stats['mean_chunk_ms']:.1f}ms "
+              f"max {stream_stats['max_chunk_ms']:.1f}ms")
+    print(f"frontier: {miner.n_zones_finalized} zones finalized, "
+          f"{miner.n_edges_retired} edges retired, "
+          f"{miner.buffered_edges} still buffered")
+    _print_result(res, dt, "PTMT-stream")
+    return res, dt, stream_stats
 
 
 def main(argv=None):
@@ -84,15 +130,17 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device of the run (cuda or cpu)")
     ap.add_argument("--stream", action="store_true",
-                    help="incremental stream replay (not ported yet)")
+                    help="replay the dataset incrementally through "
+                         "engine.stream()")
+    ap.add_argument("--chunk-edges", type=int, default=4096,
+                    help="edges per ingested chunk in --stream mode")
     ap.add_argument("--check-sequential", action="store_true")
+    ap.add_argument("--tree-depth", type=int, default=2)
     ap.add_argument("--out-json", default=None,
-                    help="write the full run summary")
+                    help="write the full run summary (same schema for "
+                         "batch and stream modes)")
     obs_mod.add_cli_args(ap)
     args = ap.parse_args(argv)
-    if args.stream:
-        raise SystemExit("--stream (the streaming miner) is ROADMAP "
-                         "slice 4 of the port and is not available yet")
 
     config = MiningConfig.from_cli_args(args)
     obs = obs_mod.from_cli_args(args)
@@ -101,10 +149,16 @@ def main(argv=None):
     print(f"{args.dataset}: {graph.n_edges} edges, {graph.n_nodes} nodes, "
           f"span {graph.time_span}s, device {engine.device}")
 
-    t0 = time.perf_counter()
-    res = engine.discover(graph)
-    dt = time.perf_counter() - t0
-    _print_result(res, dt, "PTMT")
+    if args.stream:
+        res, dt, stream_stats = _run_stream(args, engine, graph)
+        mode = "stream"
+    else:
+        t0 = time.perf_counter()
+        res = engine.discover(graph)
+        dt = time.perf_counter() - t0
+        stream_stats = None
+        mode = "batch"
+        _print_result(res, dt, "PTMT")
 
     if args.check_sequential:
         t0 = time.perf_counter()
@@ -118,8 +172,9 @@ def main(argv=None):
 
     if args.out_json:
         with open(args.out_json, "w") as f:
-            json.dump(_summary(args, config, graph, res, dt), f, indent=1,
-                      sort_keys=True)
+            json.dump(_summary(args, config, graph, res, dt, mode,
+                               stream_stats),
+                      f, indent=1, sort_keys=True)
         print(f"summary written to {args.out_json}")
 
     obs_mod.write_cli_outputs(obs, args)

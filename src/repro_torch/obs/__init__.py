@@ -19,12 +19,12 @@ passing a live bundle where you build the stack::
     obs.metrics.to_prometheus()     # scrape text
     obs.tracer.write("trace.json")  # open in chrome://tracing / Perfetto
 
-or, from the CLI, via ``--metrics-out``/``--trace-out`` on
-``launch/mine.py``.
+or, from the CLIs, via ``--metrics-out``/``--trace-out`` on
+``launch/mine.py`` and ``launch/serve_motifs.py``.
 
 A process-global bundle (:func:`install_global` / :func:`global_obs`)
 exists for layers with no construction-time injection point.  It defaults
-to :data:`NULL_OBS` and the CLI installs its bundle into it.
+to :data:`NULL_OBS` and the CLIs install their bundle into it.
 """
 
 from __future__ import annotations
@@ -103,7 +103,7 @@ def global_obs() -> Observability:
     return _GLOBAL
 
 
-# -- CLI plumbing (launch/mine.py) -------------------------------------------
+# -- CLI plumbing (launch/mine.py and launch/serve_motifs.py) ----------------
 
 
 def add_cli_args(ap) -> None:

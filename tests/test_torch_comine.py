@@ -2,7 +2,8 @@
 against the JAX package: ``engine.discover_many`` equals the JAX package's
 ``discover_many`` and the port's own per-config ``discover``, byte for
 byte, on the fused and the per-bucket layouts; lattices and budget-derived
-plans equal the JAX package's for the ``ref`` memory model."""
+plans and ``suggest_e_cap`` equal the JAX package's for the ``ref``
+memory model."""
 
 import warnings
 
@@ -76,6 +77,25 @@ def test_plan_layout_capacity_and_peaks_match_jax():
         j_planner.legacy_peak_bytes(9, 4096, 6, zone_chunk=2)
     assert planner.comine_peak_bytes(2, 4096, 6, merge_caps=(8192, 1024)) == \
         j_planner.comine_peak_bytes(2, 4096, 6, merge_caps=(8192, 1024))
+
+
+@pytest.mark.parametrize("zone_chunk", [1, 4])
+@pytest.mark.parametrize("l_max", [2, 5, 7])
+def test_suggest_e_cap_matches_jax(l_max, zone_chunk):
+    """Equal to the JAX function under the ``ref`` memory model, a power
+    of two, and growing with the budget (the JAX test's asserts)."""
+    got = []
+    for budget in (4, 16, 64, 512):
+        kw = dict(l_max=l_max, memory_budget_mb=budget, zone_chunk=zone_chunk)
+        e = planner.suggest_e_cap(**kw)
+        assert e == planner.suggest_e_cap(**kw,
+                                          mem_model=planner.ref_zone_bytes)
+        assert e == j_planner.suggest_e_cap(**kw)
+        assert e & (e - 1) == 0
+        got.append(e)
+    assert got == sorted(got) and got[-1] > got[0]
+    with pytest.raises(ValueError, match="memory_budget_mb"):
+        planner.suggest_e_cap(l_max=l_max, memory_budget_mb=0)
 
 
 def test_cuda_memory_model_counts_what_the_dense_kernel_allocates():

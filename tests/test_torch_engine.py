@@ -171,12 +171,45 @@ def test_slice2_paths_equal_jax(which):
         assert t.layout["execution"] == j.layout["execution"]
 
 
-def test_stream_still_raises_naming_its_slice():
-    """Streaming is the one path of the CLI that is still unported."""
+_CLI = ["--device", "cpu", "--backend", "cuda", "--dataset",
+        "collegemsg-like", "--delta", "60", "--l-max", "3", "--omega", "6"]
+
+
+def test_stream_still_raises_naming_its_slice(tmp_path):
+    """Streaming (slice 4) is ported, so ``--stream`` no longer raises: it
+    replays the dataset through ``engine.stream()`` and ends at the batch
+    run's counts.  Both modes write one summary schema, the JAX package's
+    keys plus ``device`` (``stream`` null in batch mode), and
+    ``--tree-depth`` is accepted as in the JAX CLI."""
+    import argparse
+    import json
+
+    from repro.launch import mine as j_mine
     from repro_torch.launch import mine
 
-    with pytest.raises(SystemExit, match="slice 4"):
-        mine.main(["--device", "cpu", "--stream"])
+    out = {m: str(tmp_path / f"{m}.json") for m in ("batch", "stream")}
+    mine.main(_CLI + ["--tree-depth", "3", "--out-json", out["batch"]])
+    mine.main(_CLI + ["--stream", "--chunk-edges", "5000", "--out-json",
+                      out["stream"]])
+    batch, stream = (json.load(open(out[m])) for m in ("batch", "stream"))
+
+    graph = j_graphs.make("collegemsg-like")
+    res = JaxEngine(JaxConfig(delta=60, l_max=3, omega=6)).discover(graph)
+    jax_keys = set(j_mine._summary(
+        argparse.Namespace(dataset="collegemsg-like", seed=0),
+        JaxConfig(delta=60, l_max=3, omega=6), graph, res, 1.0, "batch",
+        None))
+    for summary, mode in ((batch, "batch"), (stream, "stream")):
+        assert set(summary) == jax_keys | {"device"}, mode
+        assert summary["mode"] == mode and summary["device"] == "cpu"
+    assert batch["stream"] is None
+    assert stream["stream"]["chunk_edges"] == 5000
+    assert stream["stream"]["chunks"] == 4
+    assert set(stream["stream"]) == {
+        "chunk_edges", "chunks", "mean_chunk_ms", "max_chunk_ms",
+        "p50_chunk_ms", "p99_chunk_ms", "zones_finalized", "edges_retired",
+        "buffered_edges", "epoch"}
+    assert stream["counts"] == batch["counts"] == res.counts
 
 
 #: per-bucket runs of every port backend in every agg mode, each held
@@ -301,6 +334,24 @@ def test_mine_cli_check_sequential_on_cpu():
 
 
 def test_mine_cli_stream_not_ported():
-    out = _mine("--device", "cpu", "--stream")
+    """``--stream`` runs as a command (slice 4 is ported): the frontier
+    report, then the final snapshot."""
+    out = _mine(*_CLI, "--stream", "--chunk-edges", "8000")
+    assert out.returncode == 0, out.stderr
+    assert "stream: 3 chunks of 8000 edges" in out.stdout
+    assert "frontier:" in out.stdout and "PTMT-stream:" in out.stdout
+
+
+@pytest.mark.parametrize("module", ["repro_torch.launch.mine",
+                                    "repro_torch.launch.serve_motifs"])
+def test_clis_raise_without_cuda_by_default(module):
+    """Both CLIs run on CUDA unless ``--device`` says otherwise, and fail
+    on a host without it rather than carry on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", module, "--dataset", "collegemsg-like"],
+        capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
     assert out.returncode != 0
-    assert "slice 4" in out.stderr
+    assert "no CUDA device" in out.stderr
