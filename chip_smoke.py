@@ -85,10 +85,27 @@ launch, and checks them:
     restored from their checkpoints on the survivor, the streams finished
     (counts equal to the single service's), and a cold restart from the
     store (the same counts again);
-13. one JSON line naming every kernel with its launches, error and times;
-14. last line: ``{"ok": true, "device": {...}}``.
+13. sharded mining at full size: ``engine.sharded`` on a one-rank NCCL
+    ``DeviceMesh`` in this process, then on four gloo ranks spawned on
+    ``cuda:0`` as a ``(2, 2)`` mesh (NCCL takes one rank per card), both
+    merge modes, each result equal to the fused ``discover`` byte for
+    byte, with B3 launches counted per rank and each run timed;
+14. training at full width: B4's backward (the same kernel on the
+    transposed plan) held against its plain version at gin-tu's
+    ``minibatch_lg`` shapes and ``embedding_bag_fields_backward`` at
+    ``train_batch`` (65,536 x 26 fields x bag 4), each timed beside its
+    plain version and ``index_add_``; gin-tu, gat-cora and gatedgcn on
+    ``minibatch_lg``: the first step's loss against the CPU's (rtol 1e-4)
+    and each gradient leaf's difference from the CPU's (its norm at most
+    1e-2 of the gradient's, see ``TRAIN_FROB``), then 5 AdamW
+    steps through ``train_loop.run`` with a checkpoint and a resume, ms
+    per step; DCN-v2 at CONFIG: a step's gradients against the CPU's at
+    512 examples (every table gets one), then ``train_batch`` steps timed
+    and profiled;
+15. one JSON line naming every kernel with its launches, error and times;
+16. last line: ``{"ok": true, "device": {...}}``.
 
-Every path of phases 5-7 and 9-12 (but for phase 12's threaded check)
+Every path of phases 5-7 and 9-14 (but for phase 12's threaded check)
 runs with the kernels' launch counts
 set to 0 just before it and read just after; a kernel its path should
 launch but did not (or, where a count is set, launched another number of
@@ -168,6 +185,25 @@ HOT_SEGMENT = (10_000_000, 100_000, 64)
 # queries per chunk (``serve_motifs``'s defaults)
 STREAM_CHUNK = 4096
 SERVE_TENANTS, SERVE_CHUNK, SERVE_BATCH, SERVE_QUERIES = 4, 2048, 8192, 4
+# sharded mining (phase 13): gloo ranks spawned on one card, their mesh,
+# and the rows each rank folds its zones into and sends to the merge: the
+# full size has 114,124 codes, more than the default out_cap of 65,536,
+# and a rank's own table (one zone of the largest bucket: 72,464 rows)
+# cannot hold two ranks' merged codes in the hierarchical merge; either
+# overflow raises, as in the JAX package, so each rank folds into a
+# bounded carry of this many rows (agg="hierarchical", merge_cap) and
+# sends up to as many (out_cap)
+SHARD_RANKS, SHARD_MESH, SHARD_AXES = 4, (2, 2), ("a", "b")
+SHARD_CAP = 1 << 19
+# training (phase 14): a step on the card against the same step on the
+# CPU.  The loss: rtol TRAIN_TOL.  Each gradient leaf: the norm of the
+# difference over the norm of the CPU's, at most TRAIN_FROB.  Not
+# elementwise: at full width a few ReLU (and leaky-ReLU) inputs lie
+# within rounding of 0 and switch sides between the two runs, and each
+# such unit moves the gradient rows it feeds; the CPU's own float32 run
+# differs from a float64 one in the same way (logged beside it).  A lost
+# gradient term is an error of order 1.
+TRAIN_TOL, TRAIN_FROB = 1e-4, 1e-2
 
 
 def log(msg: str) -> None:
@@ -1744,6 +1780,530 @@ def serving_phase(engine, graph, solo) -> dict:
     return launches
 
 
+# -- sharded mining and training (phases 13-14) ----------------------------
+
+def counts_digest(counts: dict) -> str:
+    """SHA-256 of a count dict in sorted order: equal digests, equal
+    tables (the ranks of phase 13 report theirs)."""
+    import hashlib
+
+    return hashlib.sha256(json.dumps(sorted(counts.items())).encode()
+                          ).hexdigest()
+
+
+def full_size_graph(n_edges: int = FULL_EDGES):
+    from repro_torch.data import synthetic_graphs
+
+    gen, _ = synthetic_graphs.DATASET_ANALOGS["email-eu-like"]
+    return gen(n_edges=n_edges, n_nodes=FULL_NODES, seed=0)
+
+
+def shard_config(params):
+    """Phase 13's mining config: the main path's, with each rank's zones
+    folded into a carry of ``SHARD_CAP`` rows."""
+    from repro_torch.core import MiningConfig
+
+    return MiningConfig(backend="cuda", agg="hierarchical",
+                        merge_cap=SHARD_CAP, **params)
+
+
+def shard_rank(rank: int, store: str, out: str, run: dict) -> None:
+    """One of phase 13's gloo ranks on ``cuda:0`` (started by
+    ``torch.multiprocessing.spawn``; ``run`` carries the parent's device,
+    edge count and mining parameters): the full-size graph mined by
+    ``engine.sharded`` on a ``(2, 2)`` mesh in both merge modes, each run
+    with the launch counts at 0 before it and read after; writes its
+    report (digests, B3 launches, seconds; rank 0 also the counts)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core import PTMTEngine
+    from repro_torch.kernels.zone_scan import ops
+
+    device = torch.device(run["device"])
+    if device.type == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, SHARD_RANKS),
+                            rank=rank, world_size=SHARD_RANKS)
+    try:
+        mesh = init_device_mesh(device.type, SHARD_MESH,
+                                mesh_dim_names=SHARD_AXES)
+        graph = full_size_graph(run["edges"])
+        engine = PTMTEngine(shard_config(run["params"]), device=device)
+        sync = torch.cuda.synchronize if device.type == "cuda" \
+            else (lambda: None)
+        engine.sharded(graph, mesh, out_cap=SHARD_CAP)   # warm-up
+        report = {}
+        for mode in ("flat", "hierarchical"):
+            ops.reset_launches()
+            dist.barrier()
+            sync()
+            t0 = time.perf_counter()
+            res = engine.sharded(graph, mesh, out_cap=SHARD_CAP,
+                                 merge_mode=mode)
+            sync()
+            report[mode] = {
+                "seconds": time.perf_counter() - t0,
+                "zone_scan_dense": ops.launches["zone_scan_dense"],
+                "digest": counts_digest(res.counts),
+                "n_zones": res.n_zones,
+                "counts": sorted(res.counts.items()) if rank == 0 else None,
+            }
+        with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+            json.dump(report, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_phase(full_counts) -> int:
+    """Phase 13: ``engine.sharded`` at the mining full size on a one-rank
+    NCCL ``DeviceMesh`` in this process, then on four gloo ranks spawned
+    on ``cuda:0`` as a ``(2, 2)`` mesh (NCCL refuses two ranks on one
+    card; the group's backend sends the <= out_cap payload through host
+    memory), both merge modes; every result equals the fused ``discover``
+    byte for byte.  Returns the B3 launches of the counted runs."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core import PTMTEngine
+
+    graph = full_size_graph()
+    want = counts_digest(full_counts)
+    launches = 0
+    on_card = torch.device(DEVICE).type == "cuda"
+    with tempfile.TemporaryDirectory() as tmp:
+        if on_card:
+            torch.cuda.set_device(0)
+        dist.init_process_group(
+            "nccl" if on_card else "gloo",
+            store=dist.FileStore(os.path.join(tmp, "nccl"), 1), rank=0,
+            world_size=1)
+        try:
+            mesh = init_device_mesh(torch.device(DEVICE).type, (1,),
+                                    mesh_dim_names=("z",))
+            engine = PTMTEngine(shard_config(FULL_PARAMS), device=DEVICE)
+            engine.sharded(graph, mesh, out_cap=SHARD_CAP)  # warm-up
+            for mode in ("flat", "hierarchical"):
+                res, dt, counts = run_counted(
+                    f"sharded nccl x1 {mode}",
+                    lambda: engine.sharded(graph, mesh,
+                                           out_cap=SHARD_CAP,
+                                           merge_mode=mode),
+                    {"zone_scan_dense": None})
+                launches += counts["zone_scan_dense"]
+                if res.counts != full_counts:
+                    raise SystemExit(f"sharded (1 NCCL rank, {mode}) != "
+                                     "fused discover")
+                log(f"[sharded] 1 NCCL rank, {mode}: == fused discover "
+                    f"({len(res.counts)} codes, {res.n_zones} zones), "
+                    f"{dt:.3f}s, {graph.n_edges / dt:.0f} edges/s, "
+                    f"{counts['zone_scan_dense']} B3 launches")
+        finally:
+            dist.destroy_process_group()
+
+        t0 = time.perf_counter()
+        run = {"device": DEVICE, "edges": graph.n_edges,
+               "params": FULL_PARAMS}
+        mp.spawn(shard_rank, args=(os.path.join(tmp, "gloo"), tmp, run),
+                 nprocs=SHARD_RANKS, join=True)
+        spawn_s = time.perf_counter() - t0
+        reports = []
+        for r in range(SHARD_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                reports.append(json.load(f))
+    for mode in ("flat", "hierarchical"):
+        rows = [rep[mode] for rep in reports]
+        if any(row["digest"] != want for row in rows):
+            raise SystemExit(f"sharded ({SHARD_RANKS} gloo ranks, {mode}): "
+                             "a rank's counts != fused discover")
+        if dict(map(tuple, rows[0]["counts"])) != full_counts:
+            raise SystemExit(f"sharded ({SHARD_RANKS} gloo ranks, {mode}): "
+                             "rank 0's counts != fused discover")
+        per_rank = [row["zone_scan_dense"] for row in rows]
+        if min(per_rank) == 0:
+            raise SystemExit(f"sharded {mode}: a rank launched no B3 "
+                             f"({per_rank})")
+        launches += sum(per_rank)
+        secs = [row["seconds"] for row in rows]
+        log(f"[sharded] {SHARD_RANKS} gloo ranks on cuda:0, mesh "
+            f"{SHARD_MESH} {SHARD_AXES}, {mode}: every rank == fused "
+            f"discover ({rows[0]['n_zones']} zones), seconds per rank "
+            + ", ".join(f"{s:.3f}" for s in secs)
+            + f" ({graph.n_edges / max(secs):.0f} edges/s at the slowest); "
+            f"B3 launches per rank {per_rank}")
+    log(f"[sharded] the {SHARD_RANKS} ranks took {spawn_s:.1f}s from spawn "
+        "to join (start-up, graph, plan, a warm-up, both modes)")
+    return launches
+
+
+def grads_close(label, got, want) -> str:
+    """Every leaf of a gradient tree on the card against the CPU's (see
+    ``TRAIN_FROB``); returns a summary: the largest relative norm of the
+    difference, the largest elementwise error over the leaf's largest
+    |grad|, and the elements outside rtol/atol ``TRAIN_TOL`` (atol scaled
+    by that largest |grad|)."""
+    from repro_torch.training.tree import flatten_with_paths
+
+    want = dict(flatten_with_paths(want))
+    frob = rel = 0.0
+    outside = total = 0
+    for path, g in flatten_with_paths(got):
+        w = want[path].double()
+        d = (g.detach().cpu().double() - w).abs()
+        scale = max(float(w.abs().max()), 1e-30)
+        f = float(d.norm() / max(float(w.norm()), 1e-30))
+        if not f <= TRAIN_FROB:
+            raise SystemExit(f"{label} {path}: |difference| / |CPU "
+                             f"gradient| = {f:.3e} > {TRAIN_FROB}")
+        frob, rel = max(frob, f), max(rel, float(d.max()) / scale)
+        outside += int((d > TRAIN_TOL * (scale + w.abs())).sum())
+        total += d.numel()
+    return (f"largest |difference| / |gradient| {frob:.2e}, largest "
+            f"elementwise error {rel:.2e} of the leaf's max |grad|, "
+            f"{outside} of {total} elements outside rtol/atol {TRAIN_TOL}")
+
+
+def tree_double(tree):
+    """A tree of CPU float64 copies of its floating-point leaves."""
+    return {k: tree_double(v) if isinstance(v, dict) else (
+        v.detach().cpu().double() if v.is_floating_point() else v.cpu())
+        for k, v in tree.items()}
+
+
+def check_spmm_backward(g, n, bound):
+    """B4's backward at gin-tu's ``minibatch_lg`` shapes: the gradient of
+    a ``h[src]`` sum with respect to ``h`` [N, 64], B4 on the transposed
+    plan, against its plain version on the same inputs and against the
+    transposed sum written out (``index_add_`` of ``grad[dst]`` into the
+    sources); timed beside the transposed plan, the plain version and
+    that ``index_add_``.  Returns ``(err, timing)``."""
+    import torch
+    from repro_torch.kernels.segment_spmm import ops, ref
+
+    src, dst, mask = g["edge_src"], g["edge_dst"], g["edge_mask"]
+    d = 64
+    grad = torch.randn((n, d), generator=torch.Generator(
+        device=DEVICE).manual_seed(7), device=DEVICE)
+    plan = ops.plan(dst, n, mask)
+    rows = plan.compose(src)
+    t_plan, t_rows = transposed = ops.transpose(plan, rows, n)
+    got = ops.row_grad(grad, transposed)
+    again = ops.row_grad(grad, transposed)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise SystemExit("segment_spmm backward: two launches differ")
+    err = hold("segment_spmm backward vs plain", got,
+               ref.segment_sum(grad, t_rows, t_plan.sorted_ids, n),
+               *TOL_SPMM["float32"])
+    keep = mask & (dst >= 0) & (dst < n)
+    msgs = grad[dst.long().clamp(0, n - 1)]
+    err = max(err, hold("segment_spmm backward vs grad[dst] summed by src",
+                        got, ref.scatter_sum(msgs, src, n, keep),
+                        *TOL_SPMM["float32"]))
+    fns = {
+        "kernel": lambda: ops.launch_kernel(grad, t_plan, t_rows,
+                                            count="segment_spmm_backward"),
+        "transpose": lambda: ops.transpose(plan, rows, n),
+        "plain": lambda: ref.segment_sum(grad, t_rows, t_plan.sorted_ids, n),
+        "gather": lambda: grad[dst.long()],
+        "index_add_": lambda: torch.zeros((n, d), device=DEVICE).index_add_(
+            0, src, msgs),
+    }
+    ms = {}
+    for name, fn in fns.items():
+        fn()
+        ms[name] = cuda_ms(fn, KERNEL_REPS)
+    kept = int(t_plan.offsets[-1])
+    e = src.numel()
+    b_ms, by = bound("segment_spmm backward (transposed plan, grad once)",
+                     grad.numel() * 4 + 2 * e * 4 + (n + 1) * 8 + n * d * 4,
+                     kept * d, ms["kernel"], rate=FP32_RATE, unit="fp32")
+    log(f"[train] segment_spmm backward at minibatch_lg [{n}, {d}]: == "
+        f"plain (max abs err {err}), bitwise the same in two launches; "
+        f"kernel {ms['kernel']:.4f} ms, transposed plan "
+        f"{ms['transpose']:.4f} ms, plain {ms['plain']:.4f} ms, index_add_ "
+        f"{ms['index_add_']:.4f} ms (+ grad[dst] gather {ms['gather']:.4f}"
+        f" ms), means of {KERNEL_REPS}")
+    return err, (ms["kernel"], ms["plain"], b_ms, by, ms["index_add_"])
+
+
+def train_with_resume(label, step_fn, params, opt_state, batches, ckdir,
+                      expect):
+    """Five steps through ``train_loop.run``: three with a checkpoint
+    every two steps, then a resume from the third to the fifth (counted:
+    ``expect`` per step).  Returns ``(params, opt_state, ms per resumed
+    step, counts)``."""
+    from repro_torch.training import train_loop
+
+    def loop(total):
+        return train_loop.TrainLoopConfig(
+            total_steps=total, ckpt_dir=ckdir, ckpt_every=2, log_every=1,
+            metrics_path=os.path.join(ckdir, "metrics.jsonl"))
+
+    _, _, first = train_loop.run(step_fn=step_fn, params=params,
+                                 opt_state=opt_state, batches=batches(),
+                                 loop_cfg=loop(3))
+    (p, o, hist), _, counts = run_counted(
+        f"{label} resumed steps 4-5", lambda: train_loop.run(
+            step_fn=step_fn, params=params, opt_state=opt_state,
+            batches=batches(), loop_cfg=loop(5), device=DEVICE),
+        {k: 2 * n for k, n in expect.items()})
+    if [h["step"] for h in hist] != [4, 5] or int(o.step) != 5:
+        raise SystemExit(f"{label}: the resumed run did not continue from "
+                         f"step 3 ({[h['step'] for h in hist]})")
+    losses = [h["loss"] for h in first + hist]
+    if not all(np.isfinite(losses)):
+        raise SystemExit(f"{label}: a loss is not finite ({losses})")
+    ms = [h["step_time_s"] * 1e3 for h in first + hist]
+    log(f"[train] {label}: 5 AdamW steps (3, checkpoint, resume to 5), "
+        f"losses " + ", ".join(f"{x:.4f}" for x in losses) + "; ms per "
+        "step " + ", ".join(f"{x:.3f}" for x in ms))
+    return p, o, ms, counts
+
+
+def gnn_training(bound):
+    """gin-tu, gat-cora and gatedgcn at full width on ``minibatch_lg``:
+    the first step's loss and gradients on the card against the CPU's,
+    every aggregation's gradient through B4's autograd Function, then 5
+    AdamW steps through ``train_loop.run`` with a checkpoint and a
+    resume; gin-tu's resumed run against an uninterrupted one.  Returns
+    B4's forward and backward launches in the counted runs, its largest
+    error and its backward timing."""
+    import tempfile
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs.gnn_common import _specialize
+    from repro_torch.data.graph_data import random_graph_batch
+    from repro_torch.kernels.segment_spmm import ops
+    from repro_torch.models import gnn
+    from repro_torch.models.params import tree_init
+    from repro_torch.training import optimizer
+    from repro_torch.training.tree import leaves, value_and_grad
+
+    shape = configs.get_arch("gin-tu").shape("minibatch_lg")
+    g_cpu = random_graph_batch(
+        n_nodes=shape.n_nodes, n_edges=shape.n_edges, d_feat=shape.d_feat,
+        n_classes=shape.n_classes, seed=0, device="cpu")
+    g = tree_to(g_cpu, DEVICE)
+    err, timing = check_spmm_backward(g, shape.n_nodes, bound)
+    launches = {"segment_spmm": 0, "segment_spmm_backward": 0}
+    grad_fn = value_and_grad(gnn.loss_fn)
+    opt_cfg = optimizer.AdamWConfig(lr=1e-3, warmup_steps=1)
+    for seed, (name, per_forward) in enumerate(GNN_MODELS):
+        cfg = _specialize(configs.get_arch(name).config, shape)
+        p = tree_init(gnn.gnn_param_specs(cfg), generator=torch.Generator(
+            device=DEVICE).manual_seed(seed), device=DEVICE)
+        calls = {"row_grad": []}
+        calls["edge_grad"] = record_calls(
+            ops, "edge_grad", lambda: calls["row_grad"].extend(record_calls(
+                ops, "row_grad", lambda: calls.setdefault(
+                    "out", grad_fn(p, g, cfg)))))
+        loss, grads = calls["out"]
+        n_aggs = len(calls["edge_grad"]) + len(calls["row_grad"])
+        if n_aggs != per_forward:
+            raise SystemExit(f"{name}: {n_aggs} aggregation gradients "
+                             f"through B4's Function, expected "
+                             f"{per_forward}")
+        loss_c, grads_c = grad_fn(tree_to(p, "cpu"), g_cpu, cfg)
+        hold(f"{name} loss on the card vs the CPU", loss.cpu(), loss_c,
+             TRAIN_TOL, 0.0)
+        summary = grads_close(f"{name} gradient", grads, grads_c)
+        yardstick = ""
+        if name != "gatedgcn":      # its float64 run takes ~30 s
+            _, grads_64 = grad_fn(tree_double(p), tree_double(g_cpu), cfg)
+            yardstick = (f"; the CPU's float32 gradient against float64: "
+                         f"{grads_close(f'{name} CPU', grads_c, grads_64)}")
+            del grads_64
+        log(f"[train] {name} minibatch_lg: first step's loss "
+            f"{float(loss):.6f} (CPU {float(loss_c):.6f}); gradients on "
+            f"the card against the CPU's: {summary}{yardstick}; {n_aggs} "
+            f"aggregation gradients through B4's Function "
+            f"({len(calls['row_grad'])} on the transposed plan)")
+        del grads, grads_c
+
+        def step_fn(params, opt_state, batch):
+            loss, grads = grad_fn(params, batch, cfg)
+            params, opt_state, metrics = optimizer.apply_updates(
+                opt_cfg, params, grads, opt_state)
+            metrics["loss"] = loss
+            torch.cuda.synchronize()
+            return params, opt_state, metrics
+
+        def batches():
+            while True:
+                yield g
+
+        bwd = cfg.n_layers if cfg.kind in ("gin", "gcn") else 0
+        expect = {"segment_spmm": per_forward, "segment_plan": 1}
+        if bwd:
+            expect.update(segment_spmm_backward=bwd,
+                          segment_plan_backward=1)
+        with tempfile.TemporaryDirectory() as ckdir:
+            p_res, o_res, ms, counts = train_with_resume(
+                f"{name} minibatch_lg", step_fn, p,
+                optimizer.init_state(p), batches, ckdir, expect)
+        launches["segment_spmm"] += counts["segment_spmm"]
+        launches["segment_spmm_backward"] += counts["segment_spmm_backward"]
+        if name == "gin-tu":
+            with tempfile.TemporaryDirectory() as ckdir:
+                from repro_torch.training import train_loop
+
+                p_all, o_all, _ = train_loop.run(
+                    step_fn=step_fn, params=p,
+                    opt_state=optimizer.init_state(p), batches=batches(),
+                    loop_cfg=train_loop.TrainLoopConfig(
+                        total_steps=5, ckpt_dir=ckdir, ckpt_every=5))
+            diff = max(float((a - b).abs().max()) for a, b in zip(
+                leaves((p_res, o_res)), leaves((p_all, o_all))))
+            log(f"[train] gin-tu: the resumed run's parameters and moments "
+                f"against 5 uninterrupted steps: max abs diff {diff} "
+                f"({'bitwise' if diff == 0 else 'not bitwise'})")
+        profiled("train", f"{name} minibatch_lg training step",
+                 lambda: step_fn(p, optimizer.init_state(p), g))
+        del p, p_res, o_res
+    return launches, err, timing
+
+
+def check_bag_backward(tables, b, bound):
+    """``embedding_bag_fields_backward`` at ``train_batch`` (65,536 x 26
+    fields x bag 4) against its plain version (one ``index_add_`` per
+    field) on the same inputs; timed adding into zeroed buffers, beside
+    the plain version, the buffers' zeroing and 26 ``index_add_`` calls
+    on the weighted rows made beforehand.  Returns ``(err, timing)``."""
+    import torch
+    from repro_torch.kernels.embedding_bag import ops, ref
+
+    ids, w = b["sparse_ids"], b["sparse_weights"]
+    n_bags, n_fields, k = ids.shape
+    d = tables[0].shape[1]
+    n_dense = b["dense"].shape[1]
+    vocabs = [t.shape[0] for t in tables]
+    grad_x0 = torch.randn((n_bags, n_dense + n_fields * d),
+                          generator=torch.Generator(device=DEVICE)
+                          .manual_seed(9), device=DEVICE)
+    got = ops.launch_fields_backward_kernel(tables, ids, w, grad_x0, n_dense)
+    want = ref.embedding_bag_fields_backward(vocabs, ids, w, grad_x0,
+                                             n_dense)
+    torch.cuda.synchronize()
+    err = 0.0
+    for f, (a, bb) in enumerate(zip(got, want)):
+        # atomics and index_add_ sum a row's adds in other orders
+        err = max(err, hold(f"embedding_bag_fields_backward field {f}", a,
+                            bb, *scaled_tol(bb, TOL_BAG["float32"][0])))
+    del got, want
+    bufs = [torch.zeros((v, d), device=DEVICE) for v in vocabs]
+    idx = [ids[:, f].long().reshape(-1) for f in range(n_fields)]
+    adds = [(w[:, f, :, None] * grad_x0[:, None, n_dense + f * d:
+                                        n_dense + (f + 1) * d])
+            .reshape(-1, d) for f in range(n_fields)]
+    ms = {
+        "kernel": cuda_ms(lambda: ops.launch_fields_backward_kernel(
+            tables, ids, w, grad_x0, n_dense, into=bufs), KERNEL_REPS),
+        "zeros": cuda_ms(lambda: [x.zero_() for x in bufs], 3),
+        "plain": cuda_ms(lambda: ref.embedding_bag_fields_backward(
+            vocabs, ids, w, grad_x0, n_dense), 3),
+        "index_add_": cuda_ms(lambda: [x.index_add_(0, i, a) for x, i, a in
+                                       zip(bufs, idx, adds)], KERNEL_REPS),
+    }
+    rows = sum(int(torch.unique(ids[:, f]).numel())
+               for f in range(n_fields))
+    n_bytes = (n_bags * n_fields * k * (4 + 4) + n_bags * n_fields * d * 4
+               + rows * d * 4)
+    b_ms, by = bound("embedding_bag_fields_backward train_batch", n_bytes,
+                     2 * n_bags * n_fields * k * d, ms["kernel"],
+                     rate=FP32_RATE, unit="fp32")
+    log(f"[train] embedding_bag_fields_backward at train_batch "
+        f"({n_bags} x {n_fields} fields x bag {k}, {rows} distinct rows "
+        f"touched): == plain per field (max abs err {err}); kernel "
+        f"{ms['kernel']:.4f} ms (mean of {KERNEL_REPS}, adding into "
+        f"zeroed buffers), zeroing the {sum(vocabs)} x {d} buffers "
+        f"{ms['zeros']:.4f} ms, plain {ms['plain']:.4f} ms, 26 index_add_ "
+        f"on ready weighted rows {ms['index_add_']:.4f} ms")
+    del bufs, idx, adds
+    return err, (ms["kernel"], ms["plain"], b_ms, by, ms["index_add_"])
+
+
+def dcn_training(bound):
+    """DCN-v2 at full width (CONFIG): a step's loss and gradients on the
+    card against the CPU's at 512 examples (every table gets one), B5's
+    backward against its plain version at ``train_batch``, then
+    ``train_batch`` steps (value_and_grad + AdamW) timed and one
+    profiled.  Returns B5's forward and backward launches in the counted
+    run, its backward's error and timing."""
+    import torch
+    from repro_torch.configs import dcn_v2
+    from repro_torch.models import recsys
+    from repro_torch.models.params import tree_init
+    from repro_torch.training import optimizer
+    from repro_torch.training.tree import value_and_grad
+
+    cfg = dcn_v2.CONFIG
+    shapes = {s.name: s for s in dcn_v2.RECSYS_SHAPES}
+    p = tree_init(recsys.dcn_param_specs(cfg), generator=torch.Generator(
+        device=DEVICE).manual_seed(0), device=DEVICE)
+    grad_fn = value_and_grad(recsys.loss_fn)
+
+    def labelled(b, seed):
+        b_cpu, b = dcn_batch(cfg, b, seed)
+        y = torch.as_tensor(np.random.default_rng(seed).integers(
+            0, 2, b_cpu["dense"].shape[0]).astype(np.float32))
+        return {**b_cpu, "labels": y}, {**b, "labels": y.to(DEVICE)}
+
+    b_cpu, b = labelled(512, 4)
+    loss, grads = grad_fn(p, b, cfg)
+    loss_c, grads_c = grad_fn(tree_to(p, "cpu"), b_cpu, cfg)
+    hold("dcn-v2 loss on the card vs the CPU", loss.cpu(), loss_c,
+         TRAIN_TOL, 0.0)
+    summary = grads_close("dcn-v2 gradient", grads, grads_c)
+    empty = [k for k, t in grads["tables"].items()
+             if float(t.abs().max()) == 0]
+    if empty:
+        raise SystemExit(f"dcn-v2: tables {empty} got no gradient")
+    log(f"[train] dcn-v2 at 512 examples: loss {float(loss):.6f} (CPU "
+        f"{float(loss_c):.6f}); gradients on the card against the CPU's: "
+        f"{summary}; all {cfg.n_sparse} tables got a gradient")
+    del grads, grads_c
+
+    _, b = labelled(shapes["train_batch"].batch, 5)
+    tables = [p["tables"][f"t{i}"] for i in range(cfg.n_sparse)]
+    err, timing = check_bag_backward(tables, b, bound)
+    opt_cfg = optimizer.AdamWConfig(lr=1e-3, warmup_steps=1)
+    state = {"p": p, "o": optimizer.init_state(p)}
+
+    def step():
+        loss, grads = grad_fn(state["p"], b, cfg)
+        state["p"], state["o"], _ = optimizer.apply_updates(
+            opt_cfg, state["p"], grads, state["o"])
+        return loss
+
+    step()
+    torch.cuda.reset_peak_memory_stats()
+    (losses, times), _, counts = run_counted(
+        f"dcn-v2 train_batch x{TIMED_RUNS}", lambda: timed_runs_of(step),
+        {"embedding_bag_fields": TIMED_RUNS,
+         "embedding_bag_fields_backward": TIMED_RUNS})
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n = shapes["train_batch"].batch
+    log(f"[train] dcn-v2 train_batch (B={n}): ms per step (value_and_grad "
+        "+ AdamW over all " + f"{cfg.n_params()} params) " + ", ".join(
+            f"{t * 1e3:.3f}" for t in times) + f"; {n / min(times):.0f} "
+        f"examples/s best; peak {peak:.2f} GB; 1 B5 forward and 1 B5 "
+        "backward launch per step")
+
+    def fwd_bwd():
+        return grad_fn(state["p"], b, cfg)
+
+    profiled("train", "dcn-v2 train_batch forward + backward", fwd_bwd)
+    profiled("train", "dcn-v2 train_batch step (with AdamW)", step)
+    return counts, err, timing
+
+
 def main() -> int:
     import torch
 
@@ -2135,6 +2695,21 @@ def main() -> int:
     flat_ts_launches += serve_launches["fused_zone_scan_flat_ts"]
     dense_launches += stream_launches["zone_scan_dense"]
 
+    # -- 13. sharded mining ---------------------------------------------
+    t_phase = time.perf_counter()
+    dense_launches += sharded_phase(fused_res.counts)
+    log(f"[sharded] phase {time.perf_counter() - t_phase:.1f}s")
+
+    # -- 14. training ---------------------------------------------------
+    t_phase = time.perf_counter()
+    train_spmm, errs["segment_spmm_backward"], \
+        timing["segment_spmm_backward"] = gnn_training(bound)
+    spmm_launches += train_spmm["segment_spmm"]
+    train_bag, errs["embedding_bag_fields_backward"], \
+        timing["embedding_bag_fields_backward"] = dcn_training(bound)
+    bag_launches["embedding_bag_fields"] += train_bag["embedding_bag_fields"]
+    log(f"[train] phase {time.perf_counter() - t_phase:.1f}s")
+
     # -- 13. kernels ----------------------------------------------------
     rows = (
         ("fused_zone_scan_flat", SRC + "fused_zone_scan.cu", TPU + ":429",
@@ -2148,6 +2723,13 @@ def main() -> int:
         ("segment_spmm", SPMM_SRC, SPMM_TPU, spmm_launches),
         ("embedding_bag_fields", BAG_SRC, BAG_TPU + " (all fields, x0)",
          bag_launches["embedding_bag_fields"]),
+        ("segment_spmm_backward", SPMM_SRC,
+         SPMM_TPU + " (its transpose: the same kernel on the transposed "
+         "plan; the JAX gradient is XLA's)",
+         train_spmm["segment_spmm_backward"]),
+        ("embedding_bag_fields_backward", BAG_SRC,
+         BAG_TPU + " (its transpose, all fields; the JAX gradient is "
+         "XLA's)", train_bag["embedding_bag_fields_backward"]),
     )
     kernels = []
     for name, src, replaces, n in rows:

@@ -11,7 +11,11 @@ Subpackages:
   configs  the registry of the ported model archs
   data     synthetic temporal graphs, graph batches and recsys batches
   obs      metrics, spans and timing helpers
-  launch   the mining CLI
+  launch   the mining and motif-serving CLIs
+  serving  the motif service and its cluster layer
+  distributed  sharded mining over a ``torch.distributed`` DeviceMesh
+  training AdamW, checkpoints, the training loop, the elastic mesh policy
+  examples runnable examples (``python -m repro_torch.examples.<name>``)
 """
 
 __version__ = "1.0.0"

@@ -12,6 +12,9 @@ parallel, aggregate, encode.  :class:`PTMTEngine` is its single factory:
   pad), on the engine's own backend;
 * ``engine.stream()``           — a :class:`repro_torch.core.streaming.
   StreamingMiner` sharing this engine's executor (and so its device);
+* ``engine.sharded(graph, mesh, axes)`` — the mesh path over a
+  ``torch.distributed`` ``DeviceMesh``, with the SPMD mining step cached
+  per ``(mesh, axes, out_cap, merge_mode)``;
 * serving sessions take the engine whole: ``MotifSession(name,
   engine=engine)``.
 
@@ -20,8 +23,6 @@ via the executor), owns the capacity planner (budget-derived plans are
 memoized per batch geometry), and memoizes zone plans per graph
 fingerprint, so repeated ``discover`` on the same stream skips
 Algorithm 1.  ``engine.stats`` exposes the counters.
-
-Sharded mining is a later slice of the port (ROADMAP slice 6).
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ class EngineStats:
     discover_many_calls: int = 0    # co-mined multi-config discover calls
     comined_configs: int = 0        # member configs served by shared sweeps
     sequential_calls: int = 0
+    sharded_calls: int = 0
     stream_sessions: int = 0
     plan_cache_hits: int = 0        # discover calls that skipped plan_zones
     plan_cache_misses: int = 0      # discover calls that ran Algorithm 1
@@ -102,6 +104,9 @@ class PTMTEngine:
         # config.  LRU-bounded like the zone-plan cache.
         self._lattice_executors: dict[MiningConfig, MiningExecutor] = {}
         self._lattice_executor_cap = 16
+        # sharded mining steps (with their mesh), keyed (id(mesh), axes,
+        # out_cap, merge_mode)
+        self._mesh_steps: dict[tuple, object] = {}
 
     @property
     def backend(self) -> str:
@@ -154,18 +159,19 @@ class PTMTEngine:
         self.obs.metrics.counter("repro_mining_plan_cache_misses_total").inc()
         return plan
 
-    def _plan_and_layout(self, graph: TemporalGraph, *,
+    def _plan_and_layout(self, graph: TemporalGraph, n_shards: int = 1, *,
                          config: MiningConfig | None = None,
                          executor: MiningExecutor | None = None):
         cfg = config or self.config
         executor = executor or self.executor
         plan = self.plan_zones(graph, config=cfg)
-        pad_zones = executor.zone_chunk or 1
+        pad_zones = (executor.zone_chunk or 1) * n_shards
         with self.obs.tracer.span("engine.layout", n_zones=plan.n_zones):
             layout = tzp.build_zone_layout(graph, plan,
                                            layout=cfg.zone_layout,
                                            e_cap=cfg.e_cap,
-                                           pad_zones_to=pad_zones)
+                                           pad_zones_to=pad_zones,
+                                           n_shards=n_shards)
         return plan, layout
 
     def _note_layout(self, layout: tzp.ZoneBatchLayout) -> None:
@@ -310,3 +316,69 @@ class PTMTEngine:
                 **overrides), device=self.device, obs=self.obs)
         return StreamingMiner(config=self.config, executor=self.executor,
                               obs=self.obs)
+
+    # -- mesh path ----------------------------------------------------------
+
+    def sharded(
+        self,
+        graph: TemporalGraph,
+        mesh,
+        axes: tuple[str, ...] | None = None,
+        *,
+        out_cap: int = 65536,
+        merge_mode: str = "flat",
+    ) -> DiscoveryResult:
+        """Distributed discovery with zones sharded over ``mesh``, a
+        ``DeviceMesh`` of the engine's device type; every rank of the mesh
+        calls it on the same graph and gets the same result.
+
+        The SPMD mining step is cached per ``(mesh, axes, out_cap,
+        merge_mode)``, the mesh by identity; with a bucketed layout each bucket is sharded over
+        the mesh independently (its zones were dealt round-robin across
+        the shard lanes at build time) and the replicated per-bucket
+        tables merge through the same bounded carry as the local path.
+        Each bucket's run is a span whose execution key includes the
+        step, so a first sharded run after a same-shaped ``discover``
+        traces as a first run, not a repeat.
+        """
+        from repro_torch.distributed import mining as dist_mining
+
+        self.stats.sharded_calls += 1
+        axes = tuple(axes or mesh.mesh_dim_names)
+        plan, layout = self._plan_and_layout(
+            graph, n_shards=dist_mining.n_shards(mesh, axes))
+        MiningExecutor.check_layout_overflow(
+            layout, allow_overflow=self.config.allow_overflow)
+
+        # keyed by the mesh object, kept beside its step so that its id
+        # stays its own: an equal mesh of a later world has other groups
+        step_key = (id(mesh), axes, out_cap, merge_mode)
+        entry = self._mesh_steps.get(step_key)
+        if entry is None:
+            fn = dist_mining.make_mine_step(
+                mesh, axes, executor=self.executor, out_cap=out_cap,
+                merge_mode=merge_mode)
+            entry = self._mesh_steps[step_key] = (mesh, fn)
+        fn = entry[1]
+
+        def traced(u, v, t, valid, signs):
+            z, e = u.shape
+            key = (step_key, self.executor.execution_key(z, e))
+            with self.obs.tracer.span("mine.sharded", z=z, e=e,
+                                      compile_key=key) as sp:
+                out = fn(u, v, t, valid, signs)
+                sp.sync(out[0])
+            return out
+
+        def note(bucket):
+            self.stats.zones_mined += bucket.n_zones
+
+        counts = dist_mining.run_mine_layout(
+            traced, layout, out_cap=out_cap,
+            merge_cap=self.executor.merge_cap, on_bucket=note)
+        self._note_layout(layout)
+        return counts_to_result(
+            counts, n_zones=plan.n_zones, e_cap=layout.e_cap,
+            overflow=layout.overflow, delta=self.config.delta,
+            l_max=self.config.l_max, layout=layout.summary(),
+        )

@@ -81,6 +81,45 @@
 // cudaGetLastError() after the launch (0 on success), or -1 for a dtype
 // pair it does not take, more than kMaxFields fields or a row wider than
 // a block's shared memory.
+//
+// The transpose, `embedding_bag_fields_backward`, has no TPU kernel to
+// replace: the JAX package differentiates its XLA embedding bag
+// (`use_pallas=False`, src/repro/models/recsys.py:45).  For every field f
+// it adds w[b, f, k] * grad_x0[b, n_dense + f * D + c] into row
+// ids[b, f, k] of field f's gradient, column c, over every (b, k), in one
+// launch for all F fields (the forward's is one launch too).
+//
+// * One thread per (bag, field, column), in x0's order, so a warp reads
+//   grad_x0 contiguously and adds into two 64-byte row pieces (D = 16);
+//   it loops over the bag's K ids (broadcast loads) and adds with an fp32
+//   atomicAdd, so duplicate ids, within a bag or across bags, sum in
+//   whatever order the atomics land.  A grid-stride loop covers B * F * D
+//   items.
+// * The gradients are fp32 buffers [V_f, D] that the wrapper zeroes; a
+//   bf16 table's is cast once, after the launch.  Their pointers and
+//   vocabulary sizes go in by value, as the forward's tables do.
+// * An id the forward wraps (negative, >= -V) adds into the wrapped row;
+//   an id the forward turns into a NaN row adds nothing (its bag is NaN
+//   whatever the table holds).
+//
+// What bounds it: bytes, if the atomics kept up — ids and weights, the
+// bag columns of grad_x0, and each touched gradient row read and written
+// once.  The atomics into hot rows (the small tables: a 1,000-row field
+// takes ~262 adds per element at DCN-v2's train_batch) are what it
+// waits on instead; chip_smoke.py times it beside 26 index_add_ calls.
+//
+//   int embedding_bag_fields_backward(grads, vocabs, n_fields, ids,
+//                                     weights, grad_out, grad_stride,
+//                                     n_bags, bag, ids_bag_stride,
+//                                     ids_field_stride, w_bag_stride,
+//                                     w_field_stride, n_dense, d,
+//                                     grad_dtype, stream)
+// grads: n_fields pointers to float32 [vocab_f, d] buffers; grad_out
+// [n_bags, >= n_dense + n_fields * d] of grad_dtype (0: float32, 1:
+// bfloat16), columns contiguous, rows grad_stride elements apart; ids and
+// weights as for the forward.  Returns cudaGetLastError() after the
+// launch, or -1 for a dtype it does not take or more than kMaxFields
+// fields.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -254,7 +293,90 @@ int launch(const Fields& fields, const void* dense, const int* ids,
   return static_cast<int>(cudaGetLastError());
 }
 
+struct Grads {
+  float* grad[kMaxFields];
+  long long vocab[kMaxFields];
+};
+
+template <typename O>
+__global__ void __launch_bounds__(kThreads)
+embedding_bag_fields_backward_kernel(
+    const Grads grads, const int* __restrict__ ids,
+    const float* __restrict__ weights, const O* __restrict__ grad_out,
+    long long grad_stride, long long n_bags, int n_fields, int bag,
+    long long ids_b, long long ids_f, long long w_b, long long w_f,
+    int n_dense, int d) {
+  const long long per_bag = static_cast<long long>(n_fields) * d;
+  const long long items = n_bags * per_bag;
+  const long long step = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long i = static_cast<long long>(blockIdx.x) * kThreads +
+                     threadIdx.x;
+       i < items; i += step) {
+    const long long b = i / per_bag;
+    const int rest = static_cast<int>(i - b * per_bag);
+    const int f = rest / d;
+    const int c = rest - f * d;
+    const float g = to_float(grad_out[b * grad_stride + n_dense + rest]);
+    float* grad = grads.grad[f];
+    const long long vocab = grads.vocab[f];
+    const int* bag_ids = ids + b * ids_b + f * ids_f;
+    const float* bag_w = weights + b * w_b + f * w_f;
+    for (int k = 0; k < bag; ++k) {
+      long long id = bag_ids[k];
+      if (id < 0) id += vocab;
+      if (id >= 0 && id < vocab) atomicAdd(grad + id * d + c, bag_w[k] * g);
+    }
+  }
+}
+
+template <typename O>
+int launch_backward(const Grads& grads, const int* ids, const float* weights,
+                    const void* grad_out, long long grad_stride,
+                    long long n_bags, int n_fields, int bag, long long ids_b,
+                    long long ids_f, long long w_b, long long w_f,
+                    int n_dense, int d, cudaStream_t stream) {
+  int sms = 0, dev = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long items = n_bags * n_fields * static_cast<long long>(d);
+  // 8 blocks of 256 threads per SM fill its 2,048 threads
+  const long long blocks = (items + kThreads - 1) / kThreads;
+  const long long cap = 8LL * (sms > 0 ? sms : 1);
+  const long long grid = blocks < cap ? blocks : cap;
+  if (grid > 0)
+    embedding_bag_fields_backward_kernel<O>
+        <<<static_cast<unsigned>(grid), kThreads, 0, stream>>>(
+            grads, ids, weights, static_cast<const O*>(grad_out),
+            grad_stride, n_bags, n_fields, bag, ids_b, ids_f, w_b, w_f,
+            n_dense, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+extern "C" int embedding_bag_fields_backward(
+    float* const* grads, const long long* vocabs, int n_fields,
+    const int* ids, const float* weights, const void* grad_out,
+    long long grad_stride, long long n_bags, int bag,
+    long long ids_bag_stride, long long ids_field_stride,
+    long long w_bag_stride, long long w_field_stride, int n_dense, int d,
+    int grad_dtype, void* stream) {
+  if (n_fields < 1 || n_fields > kMaxFields) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Grads g{};
+  for (int f = 0; f < n_fields; ++f) {
+    g.grad[f] = grads[f];
+    g.vocab[f] = vocabs[f];
+  }
+#define PTMT_ARGS                                                      \
+  g, ids, weights, grad_out, grad_stride, n_bags, n_fields, bag,       \
+      ids_bag_stride, ids_field_stride, w_bag_stride, w_field_stride, \
+      n_dense, d, s
+  if (grad_dtype == 0) return launch_backward<float>(PTMT_ARGS);
+  if (grad_dtype == 1) return launch_backward<__nv_bfloat16>(PTMT_ARGS);
+#undef PTMT_ARGS
+  return -1;
+}
 
 extern "C" int embedding_bag_fields(
     const void* const* tables, const long long* vocabs, int n_fields,

@@ -11,6 +11,13 @@ current stream (built with ``nvcc`` at first use, see :mod:`.._build`) or
 raises; for CPU tensors — the tests' only device — it runs the plain
 version in :mod:`.ref`.  :data:`launches` counts kernel launches per
 wrapper and nothing else.
+
+:func:`embedding_bag_fields` is a ``torch.autograd.Function`` on every
+device: its gradient with respect to the tables is the C function
+``embedding_bag_fields_backward`` (all fields in one launch, fp32
+atomics) on CUDA and one ``index_add_`` per field on the CPU; with
+respect to the dense columns it is their columns of the output gradient.
+ids and weights get no gradient.
 """
 
 from __future__ import annotations
@@ -25,12 +32,20 @@ from . import ref
 SOURCE = Path(__file__).resolve().parent / "csrc" / "embedding_bag.cu"
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
-launches = {"embedding_bag": 0, "embedding_bag_fields": 0}
+launches = {"embedding_bag": 0, "embedding_bag_fields": 0,
+            "embedding_bag_fields_backward": 0}
 
 #: table and x0 dtypes the kernel takes -> its dtype code
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    "embedding_bag_fields": ([_P, _P, _I] + [_P] * 4 + [_L, _L, _I]
+                             + [_L] * 4 + [_I, _L, _I, _I, _I, _P]),
+    "embedding_bag_fields_backward": ([_P, _P, _I] + [_P] * 3
+                                      + [_L, _L, _I] + [_L] * 4
+                                      + [_I, _I, _I, _P]),
+}
 _fns: dict[str, object] = {}
 
 
@@ -39,16 +54,15 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-def _kernel():
-    fn = _fns.get("embedding_bag_fields")
+def _kernel(name: str = "embedding_bag_fields"):
+    fn = _fns.get(name)
     if fn is None:
         from repro_torch.kernels import _build
 
-        fn = _build.load(SOURCE).embedding_bag_fields
+        fn = getattr(_build.load(SOURCE), name)
         fn.restype = ctypes.c_int
-        fn.argtypes = ([_P, _P, _I] + [_P] * 4 + [_L, _L, _I] + [_L] * 4
-                       + [_I, _L, _I, _I, _I, _P])
-        _fns["embedding_bag_fields"] = fn
+        fn.argtypes = _SIGNATURES[name]
+        _fns[name] = fn
     return fn
 
 
@@ -165,6 +179,105 @@ def launch_fields_kernel(tables, ids, weights, dense=None):
     return out
 
 
+def launch_fields_backward_kernel(tables, ids, weights, grad_x0,
+                                  n_dense: int, into=None):
+    """Launch B5's transpose on CUDA tensors; raises on anything else.
+
+    ``grad_x0 [B, n_dense + F * D]`` (f32 or bf16) is the gradient of
+    :func:`embedding_bag_fields`'s output; returns one float32 gradient
+    ``[V_f, D]`` per table, filled by one launch for all fields: zeros
+    made here, or the contiguous float32 buffers ``into`` (one per
+    table), added to in place."""
+    n_fields, d = len(tables), tables[0].shape[1]
+    if grad_x0.dtype not in DTYPES:
+        raise TypeError(f"grad_x0 has dtype {grad_x0.dtype}, expected one "
+                        f"of {list(DTYPES)}")
+    if grad_x0.shape != (ids.shape[0], n_dense + n_fields * d):
+        raise ValueError(f"grad_x0 has shape {tuple(grad_x0.shape)}, "
+                         f"expected {(ids.shape[0], n_dense + n_fields * d)}")
+    if into is None:
+        grads = [torch.zeros((t.shape[0], d), dtype=torch.float32,
+                             device=t.device) for t in tables]
+    else:
+        grads = list(into)
+        for f, (g, t) in enumerate(zip(grads, tables, strict=True)):
+            if (g.shape != (t.shape[0], d) or g.dtype != torch.float32
+                    or not g.is_contiguous()):
+                raise ValueError(f"into[{f}] is {g.dtype} "
+                                 f"{tuple(g.shape)}, expected a contiguous "
+                                 f"float32 {(t.shape[0], d)}")
+    bufs = _Tables(grads)
+    for f, g in enumerate(grads):
+        bufs(f, g)
+    for name, x in (("ids", ids), ("weights", weights),
+                    ("grad_x0", grad_x0)):
+        if x.device != bufs.device:
+            raise ValueError(f"{name} is on {x.device}, expected "
+                             f"{bufs.device} like table 0")
+    ids, weights = _bags(ids, torch.int32), _bags(weights, torch.float32)
+    if grad_x0.stride(1) != 1:
+        grad_x0 = grad_x0.contiguous()
+    b, _, k = ids.shape
+    with torch.cuda.device(bufs.device):
+        stream = torch.cuda.current_stream(bufs.device).cuda_stream
+        err = _kernel("embedding_bag_fields_backward")(
+            bufs.ptrs, bufs.vocabs, n_fields, ids.data_ptr(),
+            weights.data_ptr(), grad_x0.data_ptr(), grad_x0.stride(0), b, k,
+            ids.stride(0), ids.stride(1), weights.stride(0),
+            weights.stride(1), n_dense, d, DTYPES[grad_x0.dtype], stream)
+    if err == -1:
+        raise ValueError(f"embedding_bag_fields_backward refused "
+                         f"{n_fields} fields: it takes at most 64")
+    if err != 0:
+        raise RuntimeError(f"embedding_bag_fields_backward launch failed "
+                           f"with CUDA error {err}")
+    launches["embedding_bag_fields_backward"] += 1
+    return grads
+
+
+def fields_backward(tables, ids, weights, grad_x0, n_dense: int):
+    """The tables' gradients of :func:`embedding_bag_fields`, each in its
+    table's dtype: the kernel on CUDA, one ``index_add_`` per field on the
+    CPU; both sum in fp32 and cast once."""
+    if grad_x0.is_cuda:
+        grads = launch_fields_backward_kernel(tables, ids, weights, grad_x0,
+                                              n_dense)
+    elif grad_x0.device.type == "cpu":
+        grads = ref.embedding_bag_fields_backward(
+            [t.shape[0] for t in tables], ids, weights, grad_x0, n_dense)
+    else:
+        raise ValueError(f"unsupported device {grad_x0.device}")
+    return [g.to(t.dtype) for g, t in zip(grads, tables)]
+
+
+class _BagFields(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, ids, weights, dense, *tables):
+        ctx.save_for_backward(ids, weights)
+        ctx.tables = tables
+        ctx.dense_dtype = None if dense is None else dense.dtype
+        ctx.n_dense = 0 if dense is None else dense.shape[1]
+        first = tables[0] if tables else None
+        if first is not None and first.is_cuda:
+            return launch_fields_kernel(tables, ids, weights, dense)
+        if first is not None and first.device.type != "cpu":
+            raise ValueError(f"unsupported device {first.device}")
+        return ref.embedding_bag_fields(tables, ids, weights, dense)
+
+    @staticmethod
+    def backward(ctx, grad_x0):
+        ids, weights = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        grad_dense = (grad_x0[:, :ctx.n_dense].to(ctx.dense_dtype)
+                      if need[2] else None)
+        grads = [None] * len(ctx.tables)
+        if any(need[3:]):
+            grads = [g if n else None for g, n in zip(
+                fields_backward(ctx.tables, ids, weights, grad_x0,
+                                ctx.n_dense), need[3:])]
+        return (None, None, grad_dense, *grads)
+
+
 def embedding_bag(table, ids, weights, out=None):
     """Weighted sum-bag lookup: table ``[V, D]``, ids ``[B, K]``, weights
     ``[B, K]`` -> ``[B, D]`` in the table's dtype.
@@ -197,11 +310,11 @@ def embedding_bag_fields(tables, ids, weights, dense=None):
     Returns:
       ``[B, n_dense + F * D]``: each field's bag in the tables' dtype,
       after the dense columns, in the dtype ``torch.cat`` gives them.
-      CUDA tensors go to the kernel, CPU tensors to its plain version.
+      CUDA tensors go to the kernel, CPU tensors to its plain version,
+      forward and backward.  Differentiable in the tables and ``dense``;
+      ``weights`` that require a gradient raise, since none is computed.
     """
-    first = tables[0] if len(tables) else None
-    if first is not None and first.is_cuda:
-        return launch_fields_kernel(tables, ids, weights, dense)
-    if first is not None and first.device.type != "cpu":
-        raise ValueError(f"unsupported device {first.device}")
-    return ref.embedding_bag_fields(tables, ids, weights, dense)
+    if weights.requires_grad and torch.is_grad_enabled():
+        raise ValueError("embedding_bag_fields computes no gradient for "
+                         "weights; detach them")
+    return _BagFields.apply(ids, weights, dense, *tables)

@@ -6,6 +6,8 @@ does.  Ids follow ``jnp.take``: a negative id >= -V wraps to ``id + V``,
 any other id outside ``[0, V)`` gives a NaN row.  Duplicate ids in a bag
 accumulate.  :func:`embedding_bag_fields` is the kernel's grouped form:
 one bag per field, concatenated after the dense columns (DCN-v2's x0).
+:func:`embedding_bag_fields_backward` is its transpose with respect to the
+tables: one ``index_add_`` per field.
 """
 
 from __future__ import annotations
@@ -90,3 +92,27 @@ def embedding_bag_fields(tables, ids, weights, dense=None):
     bags = [embedding_bag(t, ids[:, f], weights[:, f])
             for f, t in enumerate(tables)]
     return torch.cat(([] if dense is None else [dense]) + bags, dim=-1)
+
+
+def embedding_bag_fields_backward(vocabs, ids, weights, grad_x0,
+                                  n_dense: int):
+    """The gradient of :func:`embedding_bag_fields` with respect to each
+    table: for field ``f``, row ``ids[b, f, k]`` gains ``weights[b, f, k]
+    * grad_x0[b, n_dense + f * D : + D]`` (one ``index_add_`` per field,
+    in fp32).  An id that wraps adds into its wrapped row; an id the
+    forward turns into a NaN row adds nothing.  Returns F float32 tensors
+    ``[vocabs[f], D]``."""
+    n_fields = len(vocabs)
+    d = (grad_x0.shape[1] - n_dense) // n_fields
+    grads = []
+    for f, v in enumerate(vocabs):
+        cols = grad_x0[:, n_dense + f * d:n_dense + (f + 1) * d].float()
+        idx = ids[:, f].long()
+        idx = torch.where(idx < 0, idx + v, idx)
+        ok = (idx >= 0) & (idx < v)
+        adds = weights[:, f].float()[..., None] * cols[:, None, :]
+        adds = torch.where(ok[..., None], adds, 0.0)
+        grads.append(torch.zeros((v, d), dtype=torch.float32,
+                                 device=grad_x0.device).index_add_(
+            0, torch.where(ok, idx, 0).reshape(-1), adds.reshape(-1, d)))
+    return grads

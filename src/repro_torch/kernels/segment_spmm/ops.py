@@ -11,12 +11,21 @@ sources (:meth:`SegmentPlan.compose`) to sum ``h[src]`` straight from the
 node rows of ``h`` — so neither a sorted copy of the values nor the
 ``[E, D]`` gathered messages are made.
 
+:func:`segment_sum` is a ``torch.autograd.Function`` on every device, so
+the CPU tests run the backward that runs on the card.  Its gradient with
+respect to per-edge values (rows = the plan's permutation) is a masked
+gather of the output gradient by destination; with respect to node rows
+read through a row index (``plan.compose(src)``) it is the same kernel
+on the transposed plan (:func:`transpose`): each kept position adds the
+output gradient's row of its segment into the row it read.
+
 For CUDA tensors the wrapper launches the kernel on PyTorch's current
 stream (built with ``nvcc`` at first use, see :mod:`.._build`) or raises;
 for CPU tensors — the tests' only device — it runs the plain version
 (:mod:`.ref`).  :data:`launches` counts launches of the sum kernel and
-nothing else; :data:`plans` counts plans built, on any device (on CUDA
-each one launches the kernel's bounds pass).
+nothing else, the backward's apart from the forward's; :data:`plans`
+counts plans built, on any device (on CUDA each one launches the
+kernel's bounds pass), the transposed plans of the backward apart.
 """
 
 from __future__ import annotations
@@ -31,10 +40,11 @@ from . import ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "segment_spmm.cu"
 
-#: kernel launches since the last :func:`reset_launches`
-launches = {"segment_spmm": 0}
+#: kernel launches since the last :func:`reset_launches` (forward sums;
+#: the backward's sums on transposed plans)
+launches = {"segment_spmm": 0, "segment_spmm_backward": 0}
 #: segment plans built since the last :func:`reset_launches`
-plans = {"segment_plan": 0}
+plans = {"segment_plan": 0, "segment_plan_backward": 0}
 
 #: value dtypes the kernel takes -> its dtype code
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -52,8 +62,9 @@ _fns: dict[str, object] = {}
 
 
 def reset_launches() -> None:
-    launches["segment_spmm"] = 0
-    plans["segment_plan"] = 0
+    for counts in (launches, plans):
+        for name in counts:
+            counts[name] = 0
 
 
 def _kernel(name: str):
@@ -102,7 +113,8 @@ class SegmentPlan:
         return index.to(torch.int32).index_select(0, self.order)
 
 
-def plan(segment_ids, num_segments: int, mask=None) -> SegmentPlan:
+def plan(segment_ids, num_segments: int, mask=None, *,
+         count: str = "segment_plan") -> SegmentPlan:
     """Sort ``segment_ids [E]`` (masked and out-of-range rows to the
     sentinel) once, for every :func:`segment_sum` over them.
 
@@ -135,19 +147,34 @@ def plan(segment_ids, num_segments: int, mask=None) -> SegmentPlan:
             sorted_ids, torch.arange(num_segments + 1, dtype=torch.int32))
     else:
         raise ValueError(f"unsupported device {dev}")
-    plans["segment_plan"] += 1
+    plans[count] += 1
     return SegmentPlan(sorted_ids, order, offsets, num_segments)
 
 
+def transpose(seg_plan: SegmentPlan, rows, n_rows: int):
+    """The plan and row index of the transposed sum: ``(t_plan, t_rows)``
+    such that ``segment_sum(grad, t_plan, t_rows)`` adds, for every kept
+    sorted position ``r``, ``grad[sorted_ids[r]]`` into row ``rows[r]``
+    of ``[n_rows, D]`` — the gradient of ``segment_sum(values, seg_plan,
+    rows)`` with respect to ``values [n_rows, D]``.  With ``rows =
+    plan(dst).compose(src)`` it sorts by source what the forward sorted by
+    destination."""
+    kept = seg_plan.sorted_ids < seg_plan.num_segments
+    t_plan = plan(rows, n_rows, kept, count="segment_plan_backward")
+    # a dropped position reads row 0 (never added: it sorts last)
+    return t_plan, t_plan.compose(torch.where(kept, seg_plan.sorted_ids, 0))
+
+
 def launch_kernel(values, seg_plan: SegmentPlan, rows,
-                  chunk: int = CHUNK_ROWS):
+                  chunk: int = CHUNK_ROWS, *, count: str = "segment_spmm"):
     """Launch B4 on CUDA tensors; raises on anything else.
 
     Sorted position ``r`` adds row ``rows[r]`` (int32, each in ``[0, R)``)
     of ``values [R, D]`` (f32 or bf16) into segment
     ``seg_plan.sorted_ids[r]``; positions at the sentinel are dropped.
     Segments longer than ``chunk`` positions are split into chunks.
-    Returns ``[num_segments, D]`` in the values' dtype.
+    Returns ``[num_segments, D]`` in the values' dtype.  ``count`` names
+    the entry of :data:`launches` the launch adds one to.
     """
     if not values.is_cuda:
         raise ValueError("the segment scatter-sum kernel needs CUDA tensors")
@@ -184,33 +211,81 @@ def launch_kernel(values, seg_plan: SegmentPlan, rows,
           seg_plan.sorted_ids.data_ptr(), seg_plan.offsets.data_ptr(),
           partial.data_ptr(), out.data_ptr(), n_pos, d, n, chunk,
           DTYPES[values.dtype], int(vec))
-    launches["segment_spmm"] += 1
+    launches[count] += 1
     return out
 
 
-def segment_sum(values, seg_plan: SegmentPlan, rows=None):
+def _sum(values, seg_plan: SegmentPlan, rows, count: str):
+    """The sum on the values' device: the kernel on CUDA, its plain
+    version on the CPU."""
+    if values.is_cuda:
+        return launch_kernel(values, seg_plan, rows, count=count)
+    if values.device.type != "cpu":
+        raise ValueError(f"unsupported device {values.device}")
+    return ref.segment_sum(values, rows, seg_plan.sorted_ids,
+                           seg_plan.num_segments)
+
+
+def edge_grad(grad, seg_plan: SegmentPlan):
+    """Gradient of a per-edge sum with respect to its values: row ``e`` is
+    ``grad[dst[e]]`` for a kept edge and 0 for a dropped one (a masked
+    gather through the plan, as XLA differentiates ``segment_sum``)."""
+    padded = torch.cat([grad, grad.new_zeros((1, grad.shape[1]))])
+    out = torch.empty((seg_plan.order.shape[0], grad.shape[1]),
+                      dtype=grad.dtype, device=grad.device)
+    return out.index_copy_(0, seg_plan.order.long(), padded.index_select(
+        0, seg_plan.sorted_ids.long()))
+
+
+def row_grad(grad, transposed):
+    """Gradient of a sum read through a row index with respect to the
+    rows: B4 on the transposed plan (``transposed`` from
+    :func:`transpose`), counted as a backward launch."""
+    t_plan, t_rows = transposed
+    return _sum(grad.contiguous(), t_plan, t_rows, "segment_spmm_backward")
+
+
+class _SegmentSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, values, seg_plan, rows, transposed):
+        ctx.seg_plan, ctx.rows, ctx.transposed = seg_plan, rows, transposed
+        ctx.n_rows = values.shape[0]
+        return _sum(values, seg_plan,
+                    seg_plan.order if rows is None else rows, "segment_spmm")
+
+    @staticmethod
+    def backward(ctx, grad):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None
+        if ctx.rows is None:
+            return edge_grad(grad, ctx.seg_plan), None, None, None
+        transposed = ctx.transposed or transpose(ctx.seg_plan, ctx.rows,
+                                                 ctx.n_rows)
+        return row_grad(grad, transposed), None, None, None
+
+
+def segment_sum(values, seg_plan: SegmentPlan, rows=None, transposed=None):
     """``out[s] = sum of values[rows[r]]`` over the sorted positions ``r``
-    of segment ``s``, accumulated in fp32.
+    of segment ``s``, accumulated in fp32; differentiable in ``values``.
 
     Args:
       values: ``[R, D]`` f32 or bf16; seg_plan: from :func:`plan`;
       rows: int32 ``[E]`` row index per sorted position, default the
         plan's permutation (``values`` per edge, ``R = E``); use
         ``seg_plan.compose(src)`` to sum ``h[src]`` with ``values = h``.
+      transposed: ``transpose(seg_plan, rows, R)``, made once per graph
+        by a caller that sums several ``[R, D]`` tensors through the same
+        rows; else the backward makes it when a gradient is needed.
     Returns:
       ``[num_segments, D]`` in the values' dtype.  CUDA tensors go to the
-      kernel, CPU tensors to its plain version.
+      kernel, CPU tensors to its plain version, forward and backward.
     """
-    rows = seg_plan.order if rows is None else rows
-    if rows.shape != seg_plan.order.shape:
+    if rows is not None and rows.shape != seg_plan.order.shape:
         raise ValueError(f"rows has shape {tuple(rows.shape)}, expected "
                          f"{tuple(seg_plan.order.shape)}")
-    if values.is_cuda:
-        return launch_kernel(values, seg_plan, rows)
-    if values.device.type != "cpu":
+    if not values.is_cuda and values.device.type != "cpu":
         raise ValueError(f"unsupported device {values.device}")
-    return ref.segment_sum(values, rows, seg_plan.sorted_ids,
-                           seg_plan.num_segments)
+    return _SegmentSum.apply(values, seg_plan, rows, transposed)
 
 
 def scatter_sum(values, segment_ids, num_segments: int, mask=None):

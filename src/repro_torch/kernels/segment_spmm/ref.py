@@ -55,15 +55,17 @@ def scatter_sum(values, segment_ids, num_segments: int, mask=None, *,
 def segment_sum(values, rows, sorted_ids, num_segments: int):
     """Sum ``values[rows[r]]`` into segment ``sorted_ids[r]`` for every
     sorted position ``r`` (the kernel's contract over a segment plan):
-    ``index_add_`` into fp32, positions with an id outside
-    ``[0, num_segments)`` dropped.  With ``rows`` the plan's stable
-    permutation each segment adds its rows in input order, as
+    ``index_add_`` into fp32 (fp64 for float64 values, which the kernel
+    does not take: a float64 reference run), positions with an id
+    outside ``[0, num_segments)`` dropped.  With ``rows`` the plan's
+    stable permutation each segment adds its rows in input order, as
     :func:`scatter_sum` does."""
     if values.dim() != 2:
         raise ValueError(f"values has shape {tuple(values.shape)}, "
                          "expected [R, D]")
+    acc = torch.promote_types(values.dtype, torch.float32)
     ids = kept_ids(sorted_ids.long(), num_segments)
-    out = torch.zeros((num_segments + 1, values.shape[1]),
-                      dtype=torch.float32, device=values.device)
-    out.index_add_(0, ids, values[rows.long()].float())
+    out = torch.zeros((num_segments + 1, values.shape[1]), dtype=acc,
+                      device=values.device)
+    out.index_add_(0, ids, values[rows.long()].to(acc))
     return out[:num_segments].to(values.dtype)

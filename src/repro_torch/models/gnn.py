@@ -11,6 +11,9 @@ no ``[E, D]`` message tensor is made; gat and gatedgcn sum their per-edge
 messages.  The device of the tensors chooses between the kernel and its
 plain version.  The other segment sums (the gcn degree,
 :func:`scatter_mean`, the graph readout) are ``index_add_``.
+:func:`loss_fn` is the training loss; its gradient reaches every
+aggregation through the segment sum's autograd Function (the same kernel
+on the transposed plan for gin and gcn).
 
 Graphs are padded, fixed-shape batches:
   node_feat [N, F] f32, edge_src/edge_dst int32[E], node_mask bool[N],
@@ -22,7 +25,7 @@ Graphs are padded, fixed-shape batches:
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, NamedTuple
+from typing import Any
 
 import torch
 import torch.nn.functional as F
@@ -129,12 +132,20 @@ def gnn_param_specs(cfg: GNNConfig) -> dict:
 # layer forward passes (single layer; the model loops over the stack)
 # ---------------------------------------------------------------------------
 
-class Aggregation(NamedTuple):
+class Aggregation:
     """The sums over a graph's in-edges (masked edges dropped), on one
-    segment plan of ``edge_dst``."""
+    segment plan of ``edge_dst``.
 
-    plan: spmm_ops.SegmentPlan
-    src_rows: torch.Tensor | None   # plan.compose(edge_src), gin and gcn
+    ``src_rows`` is ``plan.compose(edge_src)`` (gin and gcn).  The
+    transposed plan that carries the gradient of :meth:`sources` back to
+    the node rows is made once per graph, and only when a gradient is
+    needed."""
+
+    def __init__(self, plan: spmm_ops.SegmentPlan,
+                 src_rows: torch.Tensor | None = None):
+        self.plan = plan
+        self.src_rows = src_rows
+        self._transposed = None
 
     def edges(self, values):
         """Per node, the sum of ``values [E, D]`` over its in-edges."""
@@ -143,7 +154,13 @@ class Aggregation(NamedTuple):
     def sources(self, x):
         """Per node, the sum of ``x[src]`` over its in-edges, read from the
         node rows of ``x [N, D]``."""
-        return spmm_ops.segment_sum(x, self.plan, self.src_rows)
+        transposed = None
+        if x.requires_grad and torch.is_grad_enabled():
+            if self._transposed is None:
+                self._transposed = spmm_ops.transpose(
+                    self.plan, self.src_rows, x.shape[0])
+            transposed = self._transposed
+        return spmm_ops.segment_sum(x, self.plan, self.src_rows, transposed)
 
 
 def gcn_layer(h, lp, g, cfg, agg):
@@ -234,3 +251,20 @@ def forward(params, g, cfg: GNNConfig):
         pooled = _segment_sum(h, g["graph_ids"], cfg.n_graphs)
         return pooled @ params["w_out"] + params["b_out"]
     return h @ params["w_out"] + params["b_out"]
+
+
+def loss_fn(params, batch, cfg: GNNConfig):
+    """Training loss: the mean squared error of the first logit against
+    ``batch["targets"]`` when ``n_classes == 1`` (regression); else the
+    negative log-likelihood of ``batch["labels"]``, averaged over the
+    graphs (graph readout) or over the nodes of ``node_mask``."""
+    logits = forward(params, batch, cfg)
+    if cfg.n_classes == 1:   # regression (molecule energies)
+        target = batch["targets"].to(torch.float32)
+        return torch.mean(torch.square(logits[:, 0] - target))
+    logp = F.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -logp.gather(-1, batch["labels"].long()[:, None])[:, 0]
+    if cfg.readout == "graph":
+        return torch.mean(nll)
+    mask = batch["node_mask"].to(torch.float32)
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

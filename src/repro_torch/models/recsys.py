@@ -116,8 +116,9 @@ def forward(params, batch, cfg: DCNConfig):
 
 
 def loss_fn(params, batch, cfg: DCNConfig):
-    """Binary cross-entropy of the logits against ``batch["labels"]``
-    (forward arithmetic only)."""
+    """Binary cross-entropy of the logits against ``batch["labels"]``;
+    its gradient reaches every embedding table through the embedding-bag
+    kernel's backward."""
     logits = forward(params, batch, cfg).float()
     y = batch["labels"].float()
     return torch.mean(torch.clamp(logits, min=0) - logits * y

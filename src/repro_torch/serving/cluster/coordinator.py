@@ -168,10 +168,12 @@ class ClusterWorker:
         return self.service.comine(graph, tenants)
 
     def sharded_mine(self, graph, **kw):
-        """Batch mine on this worker's engine: ``engine.discover``.
+        """Batch mine on this worker's device mesh (intra-worker sharding).
 
-        A worker given a ``mesh`` raises ``NotImplementedError``: sharded
-        mining over several devices is ROADMAP slice 6 of the port.
+        With a mesh configured this is ``engine.sharded`` — zones sharded
+        over the mesh's ranks via the ``distributed/`` SPMD step — and a
+        plain warm ``engine.discover`` otherwise.  Counts are identical
+        either way.
         """
         self._check()
         if self.engine is None:
@@ -179,10 +181,8 @@ class ClusterWorker:
                 f"worker {self.worker_id!r} has no engine; batch mining "
                 f"needs an engine= or config= at construction")
         if self.mesh is not None:
-            raise NotImplementedError(
-                "sharded mining over a mesh is ROADMAP slice 6 of the port "
-                "and is not available yet; build the worker without a mesh "
-                "for engine.discover")
+            return self.engine.sharded(graph, self.mesh, self.mesh_axes,
+                                       **kw)
         return self.engine.discover(graph)
 
     # -- durability ----------------------------------------------------------

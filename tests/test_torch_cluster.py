@@ -6,8 +6,7 @@ versions), with the JAX package's uninterrupted replay (or its batch
 ``discover``) as the expected counts: checkpoint round trips and
 corruption checks, rendezvous placement, admission budgets, failover, a
 cold restart and the kill/restart harness.  The JAX case that shards over
-a JAX mesh has no counterpart yet: the port's worker raises
-``NotImplementedError`` naming slice 6.
+a JAX mesh runs on a one-rank gloo ``DeviceMesh``.
 
 The checkpoint format is shared: with ``backend="ref"`` the file the port
 writes for a stream is byte-identical to the JAX package's, and a
@@ -49,6 +48,7 @@ from repro_torch.serving.cluster import (
 )
 from repro_torch.serving.motif import MotifService, MotifSession, QueryRequest
 from conftest import random_graph
+from torch_corpus import gloo_mesh
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DELTA, L_MAX, OMEGA = 20, 4, 3
@@ -471,18 +471,23 @@ def test_comine_groups_by_owner_and_matches_independent():
             name
 
 
-def test_worker_sharded_mine_is_discover_and_a_mesh_raises():
+def test_worker_sharded_mine_is_discover_and_a_mesh_raises(tmp_path):
     """Without a mesh a worker's batch mine is ``engine.discover``; with
-    one it raises, naming the slice that ports sharded mining."""
+    one it is ``engine.sharded`` over the mesh, with the same counts as
+    the JAX package's ``discover`` (``tests/test_cluster.py``'s mesh
+    case)."""
     g = random_graph(29, 300, 9, 1_200)
+    want = JaxEngine(_jax_cfg(zone_chunk=2)).discover(g).counts
     co = _coordinator(1, config=_cfg(zone_chunk=2), ingest_batch=64)
     plain = co.workers["w0"].sharded_mine(g)
-    assert plain.counts == JaxEngine(_jax_cfg(zone_chunk=2)).discover(g) \
-        .counts
-    meshed = _coordinator(1, config=_cfg(zone_chunk=2), mesh=object(),
-                          mesh_axes=("z",))
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        meshed.workers["w0"].sharded_mine(g)
+    assert plain.counts == want
+    with gloo_mesh(tmp_path) as mesh:
+        meshed = _coordinator(1, config=_cfg(zone_chunk=2), mesh=mesh,
+                              mesh_axes=("z",), ingest_batch=64)
+        worker = meshed.workers["w0"]
+        sharded = worker.sharded_mine(g)
+        assert worker.engine.stats.sharded_calls == 1
+    assert sharded.counts == want
 
 
 def test_cluster_devices(monkeypatch):

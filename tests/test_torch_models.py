@@ -96,13 +96,16 @@ def test_gnn_forward_builds_one_plan(name, monkeypatch):
     _, g = _graphs(0, 5)
     calls, plans = [], []
     sum_rows = spmm_ops.segment_sum
-    monkeypatch.setattr(spmm_ops, "segment_sum", lambda v, plan, rows=None: (
-        calls.append((v.shape[0], rows is None)),
-        plans.append(plan), sum_rows(v, plan, rows))[-1])
+    monkeypatch.setattr(
+        spmm_ops, "segment_sum", lambda v, plan, rows=None, transposed=None: (
+            calls.append((v.shape[0], rows is None)),
+            plans.append(plan), sum_rows(v, plan, rows, transposed))[-1])
     spmm_ops.reset_launches()
     gnn.forward(p, g, cfg)
-    assert spmm_ops.plans == {"segment_plan": 1}
-    assert spmm_ops.launches == {"segment_spmm": 0}     # CPU: plain version
+    # no gradient asked for: no transposed plan
+    assert spmm_ops.plans == {"segment_plan": 1, "segment_plan_backward": 0}
+    assert spmm_ops.launches == {"segment_spmm": 0,     # CPU: plain version
+                                 "segment_spmm_backward": 0}
     per_layer = 2 if name == "gatedgcn" else 1
     assert len(calls) == per_layer * cfg.n_layers
     assert all(q is plans[0] for q in plans)
@@ -426,7 +429,8 @@ def test_dcn_forward_launches_one_bag_kernel_on_gpu():
         bag_ops.reset_launches()
         run()
         assert bag_ops.launches == {"embedding_bag": 0,
-                                    "embedding_bag_fields": 1}
+                                    "embedding_bag_fields": 1,
+                                    "embedding_bag_fields_backward": 0}
 
 
 def _to(x):

@@ -289,13 +289,13 @@ def test_plans_and_launches_are_counted():
     plan = ops.plan(seg, 3)
     for _ in range(3):
         ops.segment_sum(values, plan)
-    assert ops.plans == {"segment_plan": 1}
+    assert ops.plans == {"segment_plan": 1, "segment_plan_backward": 0}
     assert ops.scatter_sum(values, seg, 3).tolist() == [[2.0] * 3, [1.0] * 3,
                                                         [2.0] * 3]
-    assert ops.plans == {"segment_plan": 2}
-    assert ops.launches == {"segment_spmm": 0}
+    assert ops.plans == {"segment_plan": 2, "segment_plan_backward": 0}
+    assert ops.launches == {"segment_spmm": 0, "segment_spmm_backward": 0}
     ops.reset_launches()
-    assert ops.plans == {"segment_plan": 0}
+    assert ops.plans == {"segment_plan": 0, "segment_plan_backward": 0}
 
 
 def test_kernel_fused_rows_and_hot_segment_on_gpu():

@@ -6,9 +6,29 @@ corpus of ``test_differential.py`` (``_powerlaw_bursty``): zone sizes span
 several power-of-two buckets.
 """
 
+import contextlib
+import os
+
 import numpy as np
 
 from repro.core.temporal_graph import from_edges
+
+
+@contextlib.contextmanager
+def gloo_mesh(directory, shape=(1,), names=("z",)):
+    """A one-process gloo world (a ``FileStore`` under ``directory``) and
+    a CPU ``DeviceMesh`` of ``shape`` over it; the process group is
+    destroyed on exit, so the next test can make its own."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(str(directory), "store"),
+                                     1), rank=0, world_size=1)
+    try:
+        yield init_device_mesh("cpu", shape, mesh_dim_names=names)
+    finally:
+        dist.destroy_process_group()
 
 
 def powerlaw_bursty(seed, n=220, nodes=9):
