@@ -102,10 +102,24 @@ launch, and checks them:
     per step; DCN-v2 at CONFIG: a step's gradients against the CPU's at
     512 examples (every table gets one), then ``train_batch`` steps timed
     and profiled;
-15. one JSON line naming every kernel with its launches, error and times;
-16. last line: ``{"ok": true, "device": {...}}``.
+15. LM serving (no kernel of the repo lies on this path: every launch
+    count must read 0 after it): (a) the five LM archs' smoke configs,
+    float32, on the card against the CPU (``forward`` logits and aux,
+    ``loss_fn``, 12 ``serve_step`` logits and caches); (b) granite-8b (2
+    layers), gemma3-1b (6 layers, a 640-token prompt past its 512
+    window) and moonshot-v1-16b-a3b (2 layers) at full width, float32,
+    on the card against the CPU; (c) granite-8b at full width and depth
+    with bf16 serving params (16.1 GB): ``ServingEngine`` with 4 slots
+    and a 2,048-token cache over 8 requests (prompts of 8-64 tokens from
+    ``lm_pipeline``, 32 new tokens each), ``serve_step`` timed against
+    its byte bound (weights and the live part of the cache; the whole
+    cache beside it) and profiled, decode against
+    prefill on ``[4, 64]``; (d) gemma3-1b at full depth, bf16, decode
+    against prefill over 640 positions;
+16. one JSON line naming every kernel with its launches, error and times;
+17. last line: ``{"ok": true, "device": {...}}``.
 
-Every path of phases 5-7 and 9-14 (but for phase 12's threaded check)
+Every path of phases 5-7 and 9-15 (but for phase 12's threaded check)
 runs with the kernels' launch counts
 set to 0 just before it and read just after; a kernel its path should
 launch but did not (or, where a count is set, launched another number of
@@ -204,6 +218,30 @@ SHARD_CAP = 1 << 19
 # differs from a float64 one in the same way (logged beside it).  A lost
 # gradient term is an error of order 1.
 TRAIN_TOL, TRAIN_FROB = 1e-4, 1e-2
+# LM serving (phase 15).  A card forward or decode step against the same
+# one on the CPU: rtol LM_TOL, atol LM_TOL x the largest |logit| (the JAX
+# zoo's float32 tolerance; products summed in another order).  The smoke
+# configs decode LM_SMOKE_STEPS tokens into a 16-slot cache (past gemma's
+# window of 8).  Full width at reduced depth, float32: (arch, layers,
+# [B, S] tokens, serve_steps).
+LM_TOL, LM_SMOKE_STEPS = 1e-4, 12
+LM_REDUCED = (("granite-8b", 2, (2, 64), 4),
+              ("gemma3-1b", 6, (1, 640), 4),      # one 5:1 period, > window
+              ("moonshot-v1-16b-a3b", 2, (2, 64), 4))
+# granite-8b at full width and depth with bf16 serving params: the
+# engine's slots, cache length, requests (prompts of 8-64 tokens from
+# lm_pipeline, LM_NEW_TOKENS new each) and seed; serve_steps timed, at
+# cache_len LM_STEP_AT; the decode-vs-prefill length (granite) and
+# gemma3-1b's, past its window
+LM_SLOTS, LM_MAX_LEN, LM_REQUESTS, LM_NEW_TOKENS = 4, 2048, 8, 32
+LM_PROMPT, LM_SEED, LM_STEP_REPS, LM_STEP_AT = (8, 64), 0, 20, 100
+LM_PREFILL, LM_GEMMA_PREFILL = 64, 640
+# decode against prefill in bf16: each position's logits within LM_BF16_TOL
+# (rtol, and atol of it x that position's largest |logit|).  One bf16 ulp
+# is 2^-8 (3.9e-3) relative; decode and prefill round the same values
+# through products of other shapes, and the residual stream carries each
+# rounding through every layer, so the limit allows about 8 ulps.
+LM_BF16_TOL = 3e-2
 
 
 def log(msg: str) -> None:
@@ -2304,6 +2342,239 @@ def dcn_training(bound):
     return counts, err, timing
 
 
+# -- LM serving (phase 15) -------------------------------------------------
+
+def lm_hold(label, got, want) -> float:
+    """A card result against the CPU's at the LM zoo's tolerance."""
+    return hold(label, got.cpu(), want, *scaled_tol(want, LM_TOL))
+
+
+def lm_card_vs_cpu(label, cfg, *, tokens, steps, max_len, seed=0):
+    """One seeded float32 init on the card, copied to the CPU; ``forward``
+    logits and aux, ``loss_fn``, then ``steps`` ``serve_step`` logits and
+    the caches, card against CPU.  Returns the largest error and the
+    card's forward time (ms, synced)."""
+    import torch
+    from repro_torch.models import transformer
+
+    p = transformer.init_params(cfg, generator=torch.Generator(
+        device=DEVICE).manual_seed(seed), device=DEVICE)
+    p_cpu = tree_to(p, "cpu")
+    tok_cpu = torch.as_tensor(np.random.default_rng(seed + 1).integers(
+        0, cfg.vocab, tokens))
+    tok = tok_cpu.to(DEVICE)
+    batch = {"tokens": tok, "targets": torch.roll(tok, -1, 1)}
+    batch_cpu = {k: v.cpu() for k, v in batch.items()}
+    with torch.no_grad():
+        (logits, aux), times = timed_runs_of(
+            lambda: transformer.forward(p, tok, cfg), 2)
+        logits_c, aux_c = transformer.forward(p_cpu, tok_cpu, cfg)
+        err = max(lm_hold(f"{label} forward logits", logits, logits_c),
+                  lm_hold(f"{label} aux", aux, aux_c),
+                  lm_hold(f"{label} loss_fn",
+                          transformer.loss_fn(p, batch, cfg),
+                          transformer.loss_fn(p_cpu, batch_cpu, cfg)))
+        cache = transformer.init_cache(cfg, tokens[0], max_len, DEVICE)
+        cache_c = transformer.init_cache(cfg, tokens[0], max_len, "cpu")
+        for i in range(steps):
+            lg, cache = transformer.serve_step(
+                p, cache, tok[:, i:i + 1], i, cfg)
+            lg_c, cache_c = transformer.serve_step(
+                p_cpu, cache_c, tok_cpu[:, i:i + 1], i, cfg)
+            err = max(err, lm_hold(f"{label} serve_step {i}", lg, lg_c))
+        for key in ("k", "v"):
+            err = max(err, lm_hold(f"{label} cache {key}", cache[key],
+                                   cache_c[key]))
+    if not bool(torch.isfinite(logits).all()):
+        raise SystemExit(f"{label}: non-finite logits")
+    return err, min(times) * 1e3
+
+
+def lm_smoke_and_reduced():
+    """(a) the five smoke configs and (b) three archs at full width and
+    reduced depth (float32), each on the card against the CPU."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_arch, lm_arch_names
+
+    for name in lm_arch_names():
+        cfg = get_arch(name).smoke_config
+        err, ms = lm_card_vs_cpu(f"{name} smoke", cfg, tokens=(2, 32),
+                                 steps=LM_SMOKE_STEPS, max_len=16)
+        log(f"[lm] {name} smoke ({cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}): forward, aux, loss and {LM_SMOKE_STEPS} "
+            f"serve_steps (window {cfg.window}) equal to the CPU's, max abs "
+            f"err {err:.3g}")
+    for name, depth, tokens, steps in LM_REDUCED:
+        full = get_arch(name).config
+        cfg = dataclasses.replace(full, n_layers=depth, dtype=torch.float32)
+        err, ms = lm_card_vs_cpu(f"{name} at {depth} layers", cfg,
+                                 tokens=tokens, steps=steps,
+                                 max_len=tokens[1])
+        log(f"[lm] {name} at full width, depth cut {full.n_layers} -> "
+            f"{depth} layers, float32 ({cfg.n_params()} params): forward "
+            f"on {tokens[0]} x {tokens[1]} tokens {ms:.3f} ms, forward, "
+            f"aux, loss and {steps} serve_steps equal to the CPU's, max "
+            f"abs err {err:.3g}")
+
+
+def decode_vs_prefill(label, p, cfg, tokens):
+    """``serve_step`` over every position of ``tokens [B, S]`` against
+    ``forward`` on them, each position within the bf16 tolerance;
+    returns ``(largest error over the largest |logit|, argmax agreement,
+    ms per step)``."""
+    import torch
+    from repro_torch.models import transformer
+
+    b, s = tokens.shape
+    with torch.no_grad():
+        full, _ = transformer.forward(p, tokens, cfg)
+        cache = transformer.init_cache(cfg, b, s, DEVICE)
+        worst, agree = 0.0, 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps = []
+        for i in range(s):
+            lg, cache = transformer.serve_step(p, cache, tokens[:, i:i + 1],
+                                               i, cfg)
+            steps.append(lg)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / s
+        for i, lg in enumerate(steps):
+            want = full[:, i]
+            scale = float(want.abs().max())
+            hold(f"{label} decode vs prefill at position {i}", lg, want,
+                 LM_BF16_TOL, LM_BF16_TOL * scale)
+            worst = max(worst, float((lg - want).abs().max()) / scale)
+            agree += int((lg.argmax(-1) == want.argmax(-1)).sum())
+    return worst, agree / (b * s), ms
+
+
+def lm_granite_full(seed: int = LM_SEED):
+    """(c) granite-8b at full width and depth with bf16 serving params:
+    the engine over a few requests, serve_step timed and profiled
+    against its byte bound, decode against prefill."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.common import serve_param_specs
+    from repro_torch.data import lm_pipeline
+    from repro_torch.models import transformer
+    from repro_torch.models.params import count_params, tree_init
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.training.tree import leaves
+
+    cfg = get_arch("granite-8b").config
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    p = tree_init(serve_param_specs(cfg), generator=torch.Generator(
+        device=DEVICE).manual_seed(seed), device=DEVICE)
+    torch.cuda.synchronize()
+    param_bytes = sum(x.numel() * x.element_size() for x in leaves(p))
+    log(f"[lm] granite-8b full ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {count_params(serve_param_specs(cfg))} params, "
+        f"{param_bytes / 1e9:.3f} GB bf16) initialised on the card in "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    rng = np.random.default_rng(seed)
+    toks, _ = next(lm_pipeline.batches(seed, batch=LM_REQUESTS,
+                                       seq_len=LM_PROMPT[1], vocab=cfg.vocab))
+    lens = rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, LM_REQUESTS)
+    requests = [Request(prompt=[int(t) for t in row[:n]],
+                        max_new_tokens=LM_NEW_TOKENS)
+                for row, n in zip(toks, lens)]
+    eng = ServingEngine(cfg, p, slots=LM_SLOTS, max_len=LM_MAX_LEN)
+    cache_bytes = sum(x.numel() * x.element_size()
+                      for x in eng.cache.values())
+    torch.cuda.reset_peak_memory_stats()
+    steps = int(lens.sum()) + LM_REQUESTS * (LM_NEW_TOKENS - 1)
+    _, (dt,) = timed_runs_of(lambda: eng.run(requests), 1)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    for i, r in enumerate(requests):
+        if not (r.done and len(r.out) == LM_NEW_TOKENS
+                and all(0 <= t < cfg.vocab for t in r.out)):
+            raise SystemExit(f"lm engine: request {i} ended with "
+                             f"{len(r.out)} tokens {r.out[:8]}...")
+    generated = LM_REQUESTS * LM_NEW_TOKENS
+    log(f"[lm] granite-8b engine: {LM_REQUESTS} requests (prompts "
+        f"{int(lens.min())}-{int(lens.max())} tokens, {LM_NEW_TOKENS} new "
+        f"each), {LM_SLOTS} slots, max_len {LM_MAX_LEN}: {dt:.3f}s for "
+        f"{steps} serve_steps ({dt * 1e3 / steps:.3f} ms each), "
+        f"{generated / dt:.1f} generated tokens/s, {steps / dt:.1f} "
+        f"tokens fed/s; every request ended with {LM_NEW_TOKENS} tokens in "
+        f"the vocab; peak {peak:.2f} GB (params {param_bytes / 1e9:.3f}, "
+        f"cache {cache_bytes / 1e9:.3f})")
+
+    tok = torch.zeros((LM_SLOTS, 1), dtype=torch.int64, device=DEVICE)
+    with torch.no_grad():
+        def one_step():
+            return transformer.serve_step(p, eng.cache, tok, LM_STEP_AT,
+                                          cfg)
+
+        one_step()
+        ms = cuda_ms(one_step, LM_STEP_REPS)
+        profiled("lm", f"granite-8b serve_step x{LM_STEP_REPS}",
+                 lambda: [one_step() for _ in range(LM_STEP_REPS)])
+    # the step needs the weights and the cache's first LM_STEP_AT + 1
+    # positions; the decode einsum reads (and masks) all LM_MAX_LEN today
+    live_bytes = param_bytes + cache_bytes * (LM_STEP_AT + 1) // LM_MAX_LEN
+    bound_ms = live_bytes / HBM_RATE * 1e3
+    whole_ms = (param_bytes + cache_bytes) / HBM_RATE * 1e3
+    log(f"[lm] granite-8b serve_step [{LM_SLOTS}, 1] at cache_len "
+        f"{LM_STEP_AT} of {LM_MAX_LEN}: {ms:.3f} ms per step "
+        f"({LM_STEP_REPS} steps, CUDA events around the host loop); "
+        f"weights + the cache's {LM_STEP_AT + 1} live positions "
+        f"{live_bytes / 1e9:.3f} GB per step, bound {bound_ms:.3f} ms at "
+        f"{HBM_RATE / 1e12:.2f} TB/s = {bound_ms / ms:.1%} of it; with "
+        f"the whole cache, as the decode einsum reads it today, "
+        f"{(param_bytes + cache_bytes) / 1e9:.3f} GB, {whole_ms:.3f} ms = "
+        f"{whole_ms / ms:.1%}")
+    del eng
+
+    tokens = torch.as_tensor(next(lm_pipeline.batches(
+        seed + 1, batch=LM_SLOTS, seq_len=LM_PREFILL, vocab=cfg.vocab))[0],
+        dtype=torch.int64, device=DEVICE)
+    worst, agree, step_ms = decode_vs_prefill("granite-8b", p, cfg, tokens)
+    log(f"[lm] granite-8b decode vs prefill on [{LM_SLOTS}, {LM_PREFILL}]: "
+        f"largest error {worst:.3g} of the largest |logit| at its position "
+        f"(limit {LM_BF16_TOL}), argmax equal at {agree:.1%} of positions, "
+        f"{step_ms:.3f} ms per serve_step")
+
+
+def lm_gemma_full(seed: int = LM_SEED):
+    """(d) gemma3-1b at full depth, bf16: decode against prefill over
+    ``LM_GEMMA_PREFILL`` positions, past its 512-token window."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.common import serve_param_specs
+    from repro_torch.data import lm_pipeline
+    from repro_torch.models.params import tree_init
+
+    cfg = get_arch("gemma3-1b").config
+    p = tree_init(serve_param_specs(cfg), generator=torch.Generator(
+        device=DEVICE).manual_seed(seed), device=DEVICE)
+    tokens = torch.as_tensor(next(lm_pipeline.batches(
+        seed, batch=2, seq_len=LM_GEMMA_PREFILL, vocab=cfg.vocab))[0],
+        dtype=torch.int64, device=DEVICE)
+    worst, agree, step_ms = decode_vs_prefill("gemma3-1b", p, cfg, tokens)
+    log(f"[lm] gemma3-1b full ({cfg.n_layers} layers, window "
+        f"{cfg.window}, bf16) decode vs prefill on [2, {LM_GEMMA_PREFILL}]: "
+        f"largest error {worst:.3g} of the largest |logit| at its position "
+        f"(limit {LM_BF16_TOL}), argmax equal at {agree:.1%}, "
+        f"{step_ms:.3f} ms per serve_step")
+
+
+def lm_phase() -> None:
+    """Phase 15: the LM zoo's serving path, with every kernel's launch
+    count set to 0 before and read after (the LM path launches none of
+    them)."""
+    _, _, counts = run_counted(
+        "lm serving", lambda: (lm_smoke_and_reduced(), lm_granite_full(),
+                               lm_gemma_full()), {})
+    if any(counts.values()):
+        raise SystemExit(f"lm serving launched kernels: {counts}")
+
+
 def main() -> int:
     import torch
 
@@ -2710,7 +2981,12 @@ def main() -> int:
     bag_launches["embedding_bag_fields"] += train_bag["embedding_bag_fields"]
     log(f"[train] phase {time.perf_counter() - t_phase:.1f}s")
 
-    # -- 13. kernels ----------------------------------------------------
+    # -- 15. LM serving -------------------------------------------------
+    t_phase = time.perf_counter()
+    lm_phase()
+    log(f"[lm] phase {time.perf_counter() - t_phase:.1f}s")
+
+    # -- 16. kernels ----------------------------------------------------
     rows = (
         ("fused_zone_scan_flat", SRC + "fused_zone_scan.cu", TPU + ":429",
          launches),

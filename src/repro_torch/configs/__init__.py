@@ -1,8 +1,9 @@
 """Architecture registry: ``get_arch(<id>)`` resolves here.
 
-The archs ported so far: the three GNN archs of ``models/gnn.py`` and the
-DCN-v2 recsys arch.  Each entry is a :class:`common.ArchDef` with a full
-config, a reduced smoke config (CPU tests) and its shape set.  The JAX
+The archs ported so far: the five LM archs of ``models/transformer.py``,
+the three GNN archs of ``models/gnn.py`` and the DCN-v2 recsys arch.
+Each entry is a :class:`common.ArchDef` with a full config, a reduced
+smoke config (CPU tests) and its shape set.  The JAX
 package's other archs raise ``NotImplementedError`` naming the ROADMAP
 slice that ports them.
 """
@@ -13,17 +14,35 @@ from .common import ArchDef  # noqa: F401
 
 #: archs of the JAX package not ported yet -> the slice that ports them
 UNPORTED = {
-    **dict.fromkeys(("granite-8b", "gemma3-1b", "qwen2-72b",
-                     "moonshot-v1-16b-a3b", "arctic-480b", "equiformer-v2"),
-                    "slice 9 (the rest of the model zoo and training)"),
+    "equiformer-v2": "slice 9 (the rest of the model zoo and training)",
     "ptmt-mining": "slice 10 (cost analysis: the dry-run cells)",
 }
 
 
 def _registry() -> dict:
-    from . import dcn_v2, gat_cora, gatedgcn, gin_tu  # keep import light
+    from . import (  # local import: keep module import light
+        arctic_480b,
+        dcn_v2,
+        gat_cora,
+        gatedgcn,
+        gemma3_1b,
+        gin_tu,
+        granite_8b,
+        moonshot_v1_16b_a3b,
+        qwen2_72b,
+    )
 
-    archs = [gatedgcn.ARCH, gin_tu.ARCH, gat_cora.ARCH, dcn_v2.ARCH]
+    archs = [
+        granite_8b.ARCH,
+        gemma3_1b.ARCH,
+        qwen2_72b.ARCH,
+        moonshot_v1_16b_a3b.ARCH,
+        arctic_480b.ARCH,
+        gatedgcn.ARCH,
+        gin_tu.ARCH,
+        gat_cora.ARCH,
+        dcn_v2.ARCH,
+    ]
     return {a.name: a for a in archs}
 
 
@@ -49,3 +68,7 @@ def get_arch(name: str) -> ArchDef:
 
 def arch_names() -> list[str]:
     return sorted(registry())
+
+
+def lm_arch_names() -> list[str]:
+    return sorted(a.name for a in registry().values() if a.family == "lm")

@@ -112,11 +112,11 @@ def params_from_numpy(tree, device=None):
 
 
 #: config fields of the JAX package with no counterpart here: the kernel is
-#: chosen by the tensors' device, inference neither remats, unrolls nor
-#: drops out, and no code reads ``eps_learnable`` (eps is always a
-#: parameter)
+#: chosen by the tensors' device, inference neither remats, unrolls,
+#: accumulates gradients nor drops out, and no code reads
+#: ``eps_learnable`` (eps is always a parameter)
 DROPPED_MODEL_FIELDS = ("use_pallas", "remat", "unroll_scans",
-                        "eps_learnable", "dropout")
+                        "microbatch_override", "eps_learnable", "dropout")
 
 
 def _model_config(cls, cfg):
@@ -141,3 +141,17 @@ def dcn_config_from(cfg):
     from repro_torch.models.recsys import DCNConfig
 
     return _model_config(DCNConfig, cfg)
+
+
+def transformer_config_from(cfg):
+    """The port's :class:`~repro_torch.models.transformer.TransformerConfig`
+    from the JAX package's (or its fields as a dict), the dtype
+    (``jnp.bfloat16``, ``jnp.float32``, any numpy-readable dtype) as the
+    torch dtype of the same name."""
+    from repro_torch.models.transformer import TransformerConfig
+
+    data = dataclasses.asdict(cfg) if dataclasses.is_dataclass(cfg) \
+        else dict(cfg)
+    if not isinstance(data["dtype"], torch.dtype):
+        data["dtype"] = getattr(torch, np.dtype(data["dtype"]).name)
+    return _model_config(TransformerConfig, data)

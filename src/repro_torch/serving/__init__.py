@@ -1,5 +1,5 @@
 """Serving on the port: the multi-tenant motif service and its cluster
-layer.  The LM serving engine is a later slice (ROADMAP slice 9)."""
+layer, and the LM serving engine (``serving.engine``)."""
 
 from . import cluster, motif
 
