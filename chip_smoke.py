@@ -116,10 +116,29 @@ launch, and checks them:
     cache beside it) and profiled, decode against
     prefill on ``[4, 64]``; (d) gemma3-1b at full depth, bf16, decode
     against prefill over 640 positions;
-16. one JSON line naming every kernel with its launches, error and times;
-17. last line: ``{"ok": true, "device": {...}}``.
+16. training of the LM and equiformer (no kernel of the repo lies on
+    this path: every launch count must read 0 after each part): (a) the
+    five LM archs' smoke configs and equiformer-v2's on ``molecule``,
+    float32, one step's loss and gradients on the card against the CPU's
+    (phase 14's tolerances); (b) the same for granite-8b at full width
+    and 2 of 36 layers on [2, 64] tokens and equiformer-v2 at CONFIG width
+    and 3 of 12 layers on ``molecule``; (c) granite-8b trained at full
+    width (bf16 compute, remat "full", 4 of 36 layers) on train_4k's
+    4,096-token sequence with the global batch cut to 16 in 4
+    microbatches: ``lm_train_workload``'s step through ``train_loop.run``,
+    5 steps with a checkpoint and a resume, ms per step, tokens/s, model
+    flops over step time against the dense bf16 rate, the peak memory and
+    a profiled step; the peak of one [4, 4096] forward and backward at 2
+    layers must be lower with remat "full" than with "none"; (d)
+    equiformer-v2 trained at CONFIG width and depth on ``molecule``
+    through ``gnn_workload``'s step, 5 steps with a checkpoint and a
+    resume, ms per step, graphs/s, the share of the float32 rate, the
+    peak; (e) one equiformer-v2 forward at CONFIG on ``minibatch_lg``
+    (169,984 nodes, 168,960 edges in one chunk), timed, with its peak;
+17. one JSON line naming every kernel with its launches, error and times;
+18. last line: ``{"ok": true, "device": {...}}``.
 
-Every path of phases 5-7 and 9-15 (but for phase 12's threaded check)
+Every path of phases 5-7 and 9-16 (but for phase 12's threaded check)
 runs with the kernels' launch counts
 set to 0 just before it and read just after; a kernel its path should
 launch but did not (or, where a count is set, launched another number of
@@ -174,6 +193,9 @@ VARIANT_DENSE = {False: "zone_scan_dense", True: "zone_scan_dense_ts"}
 # the tensor cores (model zoo, phases 8-10)
 HBM_RATE = 3.35e12
 FP32_RATE = 67e12
+# and its dense bf16 tensor-core rate (989 TFLOP/s, without sparsity; the
+# same data sheet), the yardstick of the LM training step (phase 16)
+BF16_RATE = 989e12
 SPMM_SRC = "src/repro_torch/kernels/segment_spmm/csrc/segment_spmm.cu"
 SPMM_TPU = "src/repro/kernels/segment_spmm/segment_spmm.py:57"
 BAG_SRC = "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu"
@@ -242,6 +264,22 @@ LM_PREFILL, LM_GEMMA_PREFILL = 64, 640
 # through products of other shapes, and the residual stream carries each
 # rounding through every layer, so the limit allows about 8 ulps.
 LM_BF16_TOL = 3e-2
+# training of the LM and equiformer (phase 16).  A step on the card
+# against the same step on the CPU at phase 14's TRAIN_TOL / TRAIN_FROB:
+# the smoke configs, then full width at cut depth in float32: granite-8b
+# at TRAIN_LM_REDUCED (arch, layers, [B, S] tokens) and equiformer-v2
+# CONFIG at TRAIN_EQ_LAYERS of 12 layers on molecule (at 2 layers its
+# |m| > 0 weights get no gradient: only scalars reach the readout).
+TRAIN_LM_REDUCED = ("granite-8b", 2, (2, 64))
+TRAIN_EQ_LAYERS = 3
+# granite-8b trained at full width, bf16 compute, remat "full", depth cut
+# to TRAIN_LM_LAYERS of 36: train_4k's sequence with its global batch cut
+# to TRAIN_LM_BATCH, in TRAIN_LM_MICRO microbatches; the remat check
+# compares the peak of one [TRAIN_LM_BATCH / TRAIN_LM_MICRO, 4096]
+# forward and backward at TRAIN_REMAT_LAYERS layers under "full" and
+# "none"
+TRAIN_LM_LAYERS, TRAIN_LM_BATCH, TRAIN_LM_MICRO = 4, 16, 4
+TRAIN_REMAT_LAYERS = 2
 
 
 def log(msg: str) -> None:
@@ -2071,16 +2109,17 @@ def check_spmm_backward(g, n, bound):
 
 
 def train_with_resume(label, step_fn, params, opt_state, batches, ckdir,
-                      expect):
+                      expect, ckpt_every: int = 2):
     """Five steps through ``train_loop.run``: three with a checkpoint
-    every two steps, then a resume from the third to the fifth (counted:
-    ``expect`` per step).  Returns ``(params, opt_state, ms per resumed
-    step, counts)``."""
+    every ``ckpt_every`` steps (and one at the end), then a resume from the
+    third to the fifth (counted: ``expect`` per step).  Returns
+    ``(params, opt_state, ms per step, counts)``."""
     from repro_torch.training import train_loop
 
     def loop(total):
         return train_loop.TrainLoopConfig(
-            total_steps=total, ckpt_dir=ckdir, ckpt_every=2, log_every=1,
+            total_steps=total, ckpt_dir=ckdir, ckpt_every=ckpt_every,
+            log_every=1,
             metrics_path=os.path.join(ckdir, "metrics.jsonl"))
 
     _, _, first = train_loop.run(step_fn=step_fn, params=params,
@@ -2575,6 +2614,324 @@ def lm_phase() -> None:
         raise SystemExit(f"lm serving launched kernels: {counts}")
 
 
+# -- LM and equiformer training (phase 16) ----------------------------------
+
+def no_launches(label) -> None:
+    """Fails when a kernel launched since the counts were last set to 0
+    (no kernel of the repo lies on phase 16's path)."""
+    counts = {k: v for ops in kernel_ops()
+              for k, v in (*ops.launches.items(),
+                           *getattr(ops, "plans", {}).items()) if v}
+    if counts:
+        raise SystemExit(f"{label} launched kernels: {counts}")
+
+
+def train_card_vs_cpu(label, loss_fn, p, batch, cfg) -> str:
+    """``value_and_grad(loss_fn)`` on the card against the CPU on a copy
+    of the same params and batch: the loss within ``TRAIN_TOL`` and every
+    gradient leaf within ``TRAIN_FROB`` (see ``grads_close``); returns a
+    summary."""
+    import torch
+    from repro_torch.training.tree import value_and_grad
+
+    grad_fn = value_and_grad(loss_fn)
+    t0 = time.perf_counter()
+    loss, grads = grad_fn(p, batch, cfg)
+    loss = loss.cpu()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loss_c, grads_c = grad_fn(tree_to(p, "cpu"), tree_to(batch, "cpu"), cfg)
+    cpu_s = time.perf_counter() - t0
+    hold(f"{label} loss on the card vs the CPU", loss, loss_c, TRAIN_TOL,
+         0.0)
+    if not bool(torch.isfinite(loss)):
+        raise SystemExit(f"{label}: loss not finite")
+    summary = grads_close(f"{label} gradient", grads, grads_c)
+    return (f"loss {float(loss):.6f} (CPU {float(loss_c):.6f}); gradients "
+            f"on the card against the CPU's: {summary}; card "
+            f"{card_s:.2f}s, CPU {cpu_s:.2f}s")
+
+
+def lm_batch(vocab, shape, seed):
+    """Tokens ``[B, S]`` from numpy's seed and their next-token targets,
+    on the card."""
+    import torch
+
+    tok = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, vocab, shape).astype(np.int32), device=DEVICE)
+    return {"tokens": tok, "targets": torch.roll(tok, -1, 1)}
+
+
+def molecule_graph(seed=0):
+    """``molecule`` (3,840 nodes, 8,192 edges, 128 graphs, d_feat 16,
+    regression) with positions, on the card, and its shape."""
+    from repro_torch import configs
+    from repro_torch.data.graph_data import random_graph_batch
+
+    shape = configs.get_arch("equiformer-v2").shape("molecule")
+    return shape, random_graph_batch(
+        n_nodes=shape.n_nodes, n_edges=shape.n_edges, d_feat=shape.d_feat,
+        n_classes=shape.n_classes, n_graphs=shape.n_graphs,
+        with_positions=True, seed=seed, device=DEVICE)
+
+
+def train_smoke_and_reduced():
+    """(a) the five LM archs' smoke configs and equiformer-v2's on
+    ``molecule``, float32; (b) granite-8b and equiformer-v2 at full width
+    and cut depth, float32: one step's loss and gradients on the card
+    against the CPU's."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_arch, lm_arch_names
+    from repro_torch.configs.gnn_common import _specialize
+    from repro_torch.models import equiformer, transformer
+    from repro_torch.models.params import tree_init
+
+    gen = torch.Generator(device=DEVICE)
+    for name in lm_arch_names():
+        cfg = get_arch(name).smoke_config
+        p = transformer.init_params(cfg, generator=gen.manual_seed(0),
+                                    device=DEVICE)
+        log(f"[train-lm] {name} smoke ({cfg.n_layers} layers, remat "
+            f"{cfg.remat!r}) on 2 x 32 tokens: " + train_card_vs_cpu(
+                f"{name} smoke", transformer.loss_fn, p,
+                lm_batch(cfg.vocab, (2, 32), 1), cfg))
+    name, depth, tokens = TRAIN_LM_REDUCED
+    full = get_arch(name).config
+    cfg = dataclasses.replace(full, n_layers=depth, dtype=torch.float32)
+    p = transformer.init_params(cfg, generator=gen.manual_seed(0),
+                                device=DEVICE)
+    log(f"[train-lm] {name} at full width, depth cut {full.n_layers} -> "
+        f"{depth} layers, float32, remat {cfg.remat!r} ({cfg.n_params()} "
+        f"params) on {tokens[0]} x {tokens[1]} tokens: " + train_card_vs_cpu(
+            f"{name} at {depth} layers", transformer.loss_fn, p,
+            lm_batch(cfg.vocab, tokens, 2), cfg))
+    del p
+    shape, g = molecule_graph()
+    arch = get_arch("equiformer-v2")
+    for label, base, layers in (
+            ("smoke", arch.smoke_config, arch.smoke_config.n_layers),
+            ("CONFIG", arch.config, TRAIN_EQ_LAYERS)):
+        cfg = dataclasses.replace(_specialize(base, shape), n_layers=layers)
+        p = tree_init(equiformer.equiformer_param_specs(cfg),
+                      generator=gen.manual_seed(1), device=DEVICE)
+        log(f"[train-eq] equiformer-v2 {label} (d_hidden {cfg.d_hidden}, "
+            f"l_max {cfg.l_max}, {layers} of {base.n_layers} layers, "
+            f"{cfg.n_params()} params) on molecule: " + train_card_vs_cpu(
+                f"equiformer-v2 {label}", equiformer.loss_fn, p, g, cfg))
+
+
+def lm_training_full():
+    """(c) granite-8b trained at full width (bf16 compute, remat "full",
+    depth cut to TRAIN_LM_LAYERS): ``lm_train_workload``'s step through
+    ``train_loop.run`` with a checkpoint and a resume, timed, its peak
+    memory and a profiled step; then the remat check."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.common import LM_SHAPES, lm_train_workload
+    from repro_torch.launch.train import token_batches
+    from repro_torch.models import transformer
+    from repro_torch.training import optimizer
+    from repro_torch.training.tree import value_and_grad
+
+    full = get_arch("granite-8b").config
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LM_LAYERS,
+                              microbatch_override=TRAIN_LM_MICRO)
+    shape = dataclasses.replace(LM_SHAPES[0], global_batch=TRAIN_LM_BATCH)
+    opt_cfg = optimizer.AdamWConfig(lr=1e-4, warmup_steps=1)
+    w = lm_train_workload(cfg, shape, None, opt_cfg)
+    torch.cuda.empty_cache()
+    p = transformer.init_params(cfg, generator=torch.Generator(
+        device=DEVICE).manual_seed(0), device=DEVICE)
+    o = optimizer.init_state(p)
+    tokens = shape.global_batch * shape.seq_len
+    n_params = cfg.n_params()
+    log(f"[train-lm] {w.name}: granite-8b at full width (d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}), depth cut {full.n_layers} -> "
+        f"{cfg.n_layers} layers ({n_params} params), {cfg.dtype} compute, "
+        f"remat {cfg.remat!r}; [{shape.global_batch}, {shape.seq_len}] = "
+        f"{tokens} tokens per step in {TRAIN_LM_MICRO} microbatches; "
+        f"model_flops {w.model_flops:.4g} per step")
+
+    def batches():
+        return token_batches(cfg, batch=shape.global_batch,
+                             seq_len=shape.seq_len, device=DEVICE)
+
+    no_launches("granite-8b init")     # train_with_resume sets counts to 0
+    with tempfile.TemporaryDirectory() as ckdir:
+        t0 = time.perf_counter()
+        p, o, ms, _ = train_with_resume(
+            "granite-8b 4 layers train_4k", w.fn, p, o, batches, ckdir, {},
+            ckpt_every=6)
+        loop_s = time.perf_counter() - t0
+    step_ms = min(ms[1:])
+    mfu = w.model_flops / (step_ms / 1e3) / BF16_RATE
+    batch = next(batches())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    out = w.fn(p, o, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del out
+    log(f"[train-lm] granite-8b 4 layers train_4k: ms per step "
+        + ", ".join(f"{x:.1f}" for x in ms) + f" (5 steps, checkpoint at "
+        f"3, resume to 5: {loop_s:.1f}s with the checkpoint I/O); best of "
+        f"steps 2-5 {step_ms:.1f} ms = {tokens / step_ms * 1e3:.0f} "
+        f"tokens/s; model_flops / step time = "
+        f"{w.model_flops / step_ms / 1e9:.1f} TFLOP/s = {mfu:.1%} of the "
+        f"dense bf16 rate ({BF16_RATE / 1e12:.0f} TFLOP/s); peak "
+        f"{peak / 1e9:.2f} GB over one step ({held / 1e9:.2f} GB params "
+        f"and AdamW moments held)")
+    profiled("train-lm", "granite-8b 4 layers train_4k step",
+             lambda: w.fn(p, o, batch))
+    del p, o, batch
+    torch.cuda.empty_cache()
+
+    # remat: the peak of one microbatch's forward and backward
+    peaks = {}
+    for remat in ("full", "none"):
+        c2 = dataclasses.replace(full, n_layers=TRAIN_REMAT_LAYERS,
+                                 remat=remat)
+        p2 = transformer.init_params(c2, generator=torch.Generator(
+            device=DEVICE).manual_seed(0), device=DEVICE)
+        b2 = lm_batch(c2.vocab, (TRAIN_LM_BATCH // TRAIN_LM_MICRO,
+                                 shape.seq_len), 3)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        loss, grads = value_and_grad(transformer.loss_fn)(p2, b2, c2)
+        torch.cuda.synchronize()
+        peaks[remat] = (torch.cuda.max_memory_allocated() - held,
+                        time.perf_counter() - t0, float(loss))
+        del p2, grads, loss
+        torch.cuda.empty_cache()
+    if not peaks["full"][0] < peaks["none"][0]:
+        raise SystemExit(f"remat 'full' peak {peaks['full'][0]} is not "
+                         f"below 'none' {peaks['none'][0]}")
+    if peaks["full"][2] != peaks["none"][2]:
+        log(f"[train-lm] note: remat losses differ in the last bits "
+            f"({peaks['full'][2]!r} vs {peaks['none'][2]!r})")
+    log(f"[train-lm] remat check, granite-8b at {TRAIN_REMAT_LAYERS} "
+        f"layers, one [{TRAIN_LM_BATCH // TRAIN_LM_MICRO}, {shape.seq_len}] "
+        f"forward and backward: peak above the params \"full\" "
+        f"{peaks['full'][0] / 1e9:.2f} GB ({peaks['full'][1]:.2f}s), "
+        f"\"none\" {peaks['none'][0] / 1e9:.2f} GB "
+        f"({peaks['none'][1]:.2f}s)")
+
+
+def equiformer_training_full():
+    """(d) equiformer-v2 trained at CONFIG width and depth on
+    ``molecule``: ``gnn_workload``'s step through ``train_loop.run`` with
+    a checkpoint and a resume, timed, with its peak; (e) one forward at
+    CONFIG on ``minibatch_lg``, timed, with its peak."""
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.gnn_common import _specialize, gnn_workload
+    from repro_torch.data.graph_data import random_graph_batch
+    from repro_torch.models import equiformer
+    from repro_torch.models.params import tree_init
+    from repro_torch.training import optimizer
+
+    arch = get_arch("equiformer-v2")
+    shape, g = molecule_graph()
+    w = gnn_workload(arch.config, shape, None,
+                     optimizer.AdamWConfig(lr=1e-3, warmup_steps=1,
+                                           weight_decay=0.0))
+    cfg = _specialize(arch.config, shape)
+    p = tree_init(equiformer.equiformer_param_specs(cfg),
+                  generator=torch.Generator(device=DEVICE).manual_seed(0),
+                  device=DEVICE)
+
+    def batches():
+        while True:
+            yield g
+
+    no_launches("equiformer-v2 init")   # train_with_resume sets counts to 0
+    with tempfile.TemporaryDirectory() as ckdir:
+        p, o, ms, _ = train_with_resume(
+            "equiformer-v2 molecule", w.fn, p, optimizer.init_state(p),
+            batches, ckdir, {})
+    step_ms = min(ms[1:])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    w.fn(p, o, g)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[train-eq] {w.name}: CONFIG ({cfg.n_layers} layers, d_hidden "
+        f"{cfg.d_hidden}, l_max {cfg.l_max}, m_max {cfg.m_max}, "
+        f"{cfg.n_params()} params) on {shape.n_nodes} nodes, "
+        f"{shape.n_edges} edges, {shape.n_graphs} graphs: best of steps 2-5 "
+        f"{step_ms:.2f} ms = {shape.n_graphs / step_ms * 1e3:.0f} graphs/s; "
+        f"model_flops {w.model_flops:.4g} per step = "
+        f"{w.model_flops / step_ms / 1e9:.2f} TFLOP/s = "
+        f"{w.model_flops / (step_ms / 1e3) / FP32_RATE:.1%} of the float32 "
+        f"rate (TF32 off); peak {peak / 1e9:.2f} GB over one step "
+        f"({held / 1e9:.3f} GB params, moments and graph held)")
+    del p, o, g
+    torch.cuda.empty_cache()
+
+    shape = arch.shape("minibatch_lg")
+    cfg = _specialize(arch.config, shape)
+    g = tree_to(random_graph_batch(
+        n_nodes=shape.n_nodes, n_edges=shape.n_edges, d_feat=shape.d_feat,
+        n_classes=shape.n_classes, with_positions=True, seed=0,
+        device="cpu"), DEVICE)
+    p = tree_init(equiformer.equiformer_param_specs(cfg),
+                  generator=torch.Generator(device=DEVICE).manual_seed(0),
+                  device=DEVICE)
+    state_bytes = shape.n_nodes * cfg.n_irreps * cfg.d_hidden * 4
+    with torch.no_grad():
+        equiformer.forward(p, g, cfg)            # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        out, times = timed_runs_of(lambda: equiformer.forward(p, g, cfg), 2)
+        peak = torch.cuda.max_memory_allocated()
+    if out.shape != (shape.n_nodes, shape.n_classes) or not bool(
+            torch.isfinite(out).all()):
+        raise SystemExit("equiformer-v2 minibatch_lg: logits not finite or "
+                         f"of shape {tuple(out.shape)}")
+    fwd_flops = gnn_workload(arch.config, shape, None).model_flops / 3
+    log(f"[train-eq] equiformer-v2 CONFIG forward on minibatch_lg "
+        f"({shape.n_nodes} nodes, {shape.n_edges} edges in one chunk, "
+        f"d_feat {shape.d_feat}, {shape.n_classes} classes): ms per forward "
+        + ", ".join(f"{t * 1e3:.1f}" for t in times) + f"; finite "
+        f"[{shape.n_nodes}, {shape.n_classes}] logits; peak "
+        f"{peak / 1e9:.2f} GB ({held / 1e9:.2f} GB params and graph held; "
+        f"the node state alone {state_bytes / 1e9:.2f} GB); forward "
+        f"flops {fwd_flops:.4g} = {fwd_flops / min(times) / 1e12:.2f} "
+        f"TFLOP/s = {fwd_flops / min(times) / FP32_RATE:.1%} of the float32 "
+        f"rate")
+    del p, g, out
+    torch.cuda.empty_cache()
+
+
+def train_phase() -> None:
+    """Phase 16: LM and equiformer training, with every kernel's launch
+    count set to 0 before and read after each part (no kernel of the repo
+    lies on this path)."""
+    for ops in kernel_ops():
+        ops.reset_launches()
+    for label, part in (("(a)-(b) card vs CPU", train_smoke_and_reduced),
+                        ("(c) granite-8b training", lm_training_full),
+                        ("(d)-(e) equiformer-v2", equiformer_training_full)):
+        t0 = time.perf_counter()
+        part()
+        no_launches(f"phase 16 {label}")
+        log(f"[train16] {label}: {time.perf_counter() - t0:.1f}s, no "
+            "kernel launched")
+
+
 def main() -> int:
     import torch
 
@@ -2986,7 +3343,12 @@ def main() -> int:
     lm_phase()
     log(f"[lm] phase {time.perf_counter() - t_phase:.1f}s")
 
-    # -- 16. kernels ----------------------------------------------------
+    # -- 16. LM and equiformer training ---------------------------------
+    t_phase = time.perf_counter()
+    train_phase()
+    log(f"[train16] phase {time.perf_counter() - t_phase:.1f}s")
+
+    # -- 17. kernels ----------------------------------------------------
     rows = (
         ("fused_zone_scan_flat", SRC + "fused_zone_scan.cu", TPU + ":429",
          launches),

@@ -1,7 +1,8 @@
 """Architecture registry: ``get_arch(<id>)`` resolves here.
 
 The archs ported so far: the five LM archs of ``models/transformer.py``,
-the three GNN archs of ``models/gnn.py`` and the DCN-v2 recsys arch.
+the three GNN archs of ``models/gnn.py``, equiformer-v2
+(``models/equiformer.py``) and the DCN-v2 recsys arch.
 Each entry is a :class:`common.ArchDef` with a full config, a reduced
 smoke config (CPU tests) and its shape set.  The JAX
 package's other archs raise ``NotImplementedError`` naming the ROADMAP
@@ -14,7 +15,6 @@ from .common import ArchDef  # noqa: F401
 
 #: archs of the JAX package not ported yet -> the slice that ports them
 UNPORTED = {
-    "equiformer-v2": "slice 9 (the rest of the model zoo and training)",
     "ptmt-mining": "slice 10 (cost analysis: the dry-run cells)",
 }
 
@@ -23,6 +23,7 @@ def _registry() -> dict:
     from . import (  # local import: keep module import light
         arctic_480b,
         dcn_v2,
+        equiformer_v2,
         gat_cora,
         gatedgcn,
         gemma3_1b,
@@ -38,6 +39,7 @@ def _registry() -> dict:
         qwen2_72b.ARCH,
         moonshot_v1_16b_a3b.ARCH,
         arctic_480b.ARCH,
+        equiformer_v2.ARCH,
         gatedgcn.ARCH,
         gin_tu.ARCH,
         gat_cora.ARCH,

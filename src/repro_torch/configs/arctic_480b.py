@@ -23,6 +23,7 @@ CONFIG = TransformerConfig(
     d_ff_expert=4864,
     dense_residual=True,
     dtype=torch.bfloat16,
+    remat="full",
 )
 
 SMOKE = TransformerConfig(
@@ -42,6 +43,7 @@ SMOKE = TransformerConfig(
     dense_residual=True,
     capacity_factor=8.0,
     dtype=torch.float32,
+    remat="none",
     q_chunk=16,
 )
 

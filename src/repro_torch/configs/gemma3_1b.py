@@ -24,6 +24,7 @@ CONFIG = TransformerConfig(
     tie_embeddings=True,
     embed_scale=True,
     dtype=torch.bfloat16,
+    remat="full",
 )
 
 SMOKE = TransformerConfig(
@@ -43,6 +44,7 @@ SMOKE = TransformerConfig(
     tie_embeddings=True,
     embed_scale=True,
     dtype=torch.float32,
+    remat="none",
     q_chunk=16,
 )
 

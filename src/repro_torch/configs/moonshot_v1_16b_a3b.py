@@ -23,6 +23,7 @@ CONFIG = TransformerConfig(
     d_ff_expert=1408,
     n_shared_experts=2,
     dtype=torch.bfloat16,
+    remat="full",
 )
 
 SMOKE = TransformerConfig(
@@ -42,6 +43,7 @@ SMOKE = TransformerConfig(
     n_shared_experts=1,
     capacity_factor=8.0,
     dtype=torch.float32,
+    remat="none",
     q_chunk=16,
 )
 

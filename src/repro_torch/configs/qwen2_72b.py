@@ -18,6 +18,7 @@ CONFIG = TransformerConfig(
     rope_theta=1_000_000.0,
     qkv_bias=True,
     dtype=torch.bfloat16,
+    remat="full",
 )
 
 SMOKE = TransformerConfig(
@@ -32,6 +33,7 @@ SMOKE = TransformerConfig(
     rope_theta=1_000_000.0,
     qkv_bias=True,
     dtype=torch.float32,
+    remat="none",
     q_chunk=16,
 )
 

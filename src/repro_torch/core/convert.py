@@ -112,11 +112,11 @@ def params_from_numpy(tree, device=None):
 
 
 #: config fields of the JAX package with no counterpart here: the kernel is
-#: chosen by the tensors' device, inference neither remats, unrolls,
-#: accumulates gradients nor drops out, and no code reads
+#: chosen by the tensors' device, ``unroll_scans`` is a compile-time knob
+#: of the JAX package's dry run, no model drops out, and no code reads
 #: ``eps_learnable`` (eps is always a parameter)
-DROPPED_MODEL_FIELDS = ("use_pallas", "remat", "unroll_scans",
-                        "microbatch_override", "eps_learnable", "dropout")
+DROPPED_MODEL_FIELDS = ("use_pallas", "unroll_scans", "eps_learnable",
+                        "dropout")
 
 
 def _model_config(cls, cfg):
@@ -133,6 +133,14 @@ def gnn_config_from(cfg):
     from repro_torch.models.gnn import GNNConfig
 
     return _model_config(GNNConfig, cfg)
+
+
+def equiformer_config_from(cfg):
+    """The port's :class:`~repro_torch.models.equiformer.EquiformerConfig`
+    from the JAX package's (or its fields as a dict)."""
+    from repro_torch.models.equiformer import EquiformerConfig
+
+    return _model_config(EquiformerConfig, cfg)
 
 
 def dcn_config_from(cfg):

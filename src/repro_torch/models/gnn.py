@@ -25,10 +25,12 @@ Graphs are padded, fixed-shape batches:
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.kernels.segment_spmm import ops as spmm_ops
 
@@ -84,6 +86,7 @@ class GNNConfig:
     n_heads: int = 1
     readout: str = "node"      # node | graph
     n_graphs: int = 0          # static graph count for graph readout
+    remat: bool = True         # checkpoint layer bodies (full-batch bwd)
 
     def n_params(self) -> int:
         from .params import count_params
@@ -227,7 +230,9 @@ def forward(params, g, cfg: GNNConfig):
 
     Runs on the device of ``params`` and ``g``; the stacked ``[L, ...]``
     layer parameters are applied one layer at a time, every aggregation on
-    one segment plan of ``edge_dst``.
+    one segment plan of ``edge_dst``.  With ``cfg.remat`` each layer body
+    is checkpointed while gradients are recorded (its intermediates are
+    recomputed in the backward pass); the plan is made once, outside.
     """
     n = g["node_feat"].shape[0]
     plan = spmm_ops.plan(g["edge_dst"], n, g["edge_mask"])
@@ -240,10 +245,13 @@ def forward(params, g, cfg: GNNConfig):
         state = (h, e)
     else:
         state = h
-    layer_fn = _LAYERS[cfg.kind]
+    layer_fn = functools.partial(_LAYERS[cfg.kind], g=g, cfg=cfg, agg=agg)
+    if cfg.remat and torch.is_grad_enabled():
+        layer_fn = functools.partial(ckpt.checkpoint, layer_fn,
+                                     use_reentrant=False)
     for l in range(cfg.n_layers):
         lp = {k: v[l] for k, v in params["layers"].items()}
-        state = layer_fn(state, lp, g, cfg, agg)
+        state = layer_fn(state, lp)
     h = state[0] if cfg.kind == "gatedgcn" else state
 
     h = torch.where(g["node_mask"][:, None], h, 0.0)

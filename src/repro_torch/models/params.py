@@ -2,8 +2,9 @@
 
 Parameters are plain nested dicts of tensors.  Each model declares a
 matching tree of :class:`ParamSpec`; :func:`tree_init` makes the tensors
-from it with an explicit :class:`torch.Generator`, :func:`count_params`
-counts them.  The init rules are the JAX package's (``normal`` with a
+from it with an explicit :class:`torch.Generator`, :func:`tree_sds` makes
+shape-and-dtype stand-ins (meta tensors, the JAX package's
+``ShapeDtypeStruct``s), :func:`count_params` counts them.  The init rules are the JAX package's (``normal`` with a
 fan-in scale, ``zeros``, ``ones``, ``embed``); the numbers differ, as two
 generators do.
 """
@@ -34,6 +35,14 @@ def tree_leaves(specs) -> list[ParamSpec]:
     if is_spec(specs):
         return [specs]
     return [leaf for k in sorted(specs) for leaf in tree_leaves(specs[k])]
+
+
+def tree_sds(specs):
+    """A tree of meta tensors (``device="meta"``: shape and dtype, no
+    storage) shaped like ``specs``."""
+    if is_spec(specs):
+        return torch.empty(specs.shape, dtype=specs.dtype, device="meta")
+    return {k: tree_sds(specs[k]) for k in sorted(specs)}
 
 
 def _fan_in(shape) -> int:

@@ -1,14 +1,23 @@
 """Decoder-only transformer LM (dense, sliding-window and MoE) for
-serving: the JAX package's ``models/transformer.py`` as plain tensor ops.
+training and serving: the JAX package's ``models/transformer.py`` as plain
+tensor ops.
 
 Layer parameters are stacked on a leading ``[L]`` axis, as in the JAX
 package (so its parameter trees and checkpoints carry over); the layer
 scan is a Python loop over that axis, and each layer's local/global
 choice and RoPE theta come from its index, which gives the same result
 as the JAX package's mask and theta blend.  Every parameter carries its
-logical partition spec as data (:mod:`.sharding`).  The JAX config's
-training knobs (``remat``, ``unroll_scans``, ``microbatch_override``) are
-not fields here: inference reads none of them.
+logical partition spec as data (:mod:`.sharding`).
+
+``remat`` checkpoints each layer when gradients are being recorded, as
+the JAX package's ``jax.checkpoint`` around the scanned layer does:
+``"full"`` keeps only the layer's inputs (``nothing_saveable``),
+``"dots"`` also keeps the outputs of the projections without batch
+dimensions (``aten.mm``/``aten.addmm``, as ``dots_with_no_batch_dims_
+saveable``) and recomputes the rest, attention's batched products among
+them, and ``"none"`` keeps everything.  ``microbatch_override`` is read by
+:func:`repro_torch.configs.common.choose_microbatches`.  The JAX config's
+``unroll_scans`` (a compile-time knob of its dry run) is not a field here.
 
 ``serve_step`` writes the new token's K/V into the cache it is given, in
 place, and returns that cache: the JAX function returns a new cache, and
@@ -20,10 +29,12 @@ row at the one position ``cache_len``, clamped to the cache's last slot.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from . import attention, moe as moe_lib, sharding as shd
 from .layers import cross_entropy_loss, rms_norm, rope_angles, rotate, \
@@ -60,8 +71,10 @@ class TransformerConfig:
     aux_loss_weight: float = 0.01
     # numerics / memory
     dtype: Any = torch.bfloat16
+    remat: str = "full"               # full | dots | none
     q_chunk: int = 512
     gather_dtype: str = "f32"         # "bf16": layer params cast first
+    microbatch_override: int = 0      # force grad-accumulation factor
 
     @property
     def has_dense_mlp(self) -> bool:
@@ -240,18 +253,55 @@ def _logits(params, x, cfg: TransformerConfig):
     return x @ head.to(cfg.dtype)
 
 
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Keep the outputs of 2-D matmuls (the projections), recompute the
+    rest."""
+    if op in _SAVED_DOTS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _layer_call(cfg: TransformerConfig, mesh, idx: int, positions, rope):
+    """Layer ``idx`` as ``fn(x, lp) -> (x, aux)`` on its parameter slice
+    ``lp`` (cast when ``gather_dtype == "bf16"``), under the config's
+    checkpoint when gradients are being recorded."""
+
+    def layer(x, lp):
+        if cfg.gather_dtype == "bf16":
+            lp = {k: w.to(cfg.dtype) for k, w in lp.items()}
+        return _layer_fwd(cfg, mesh, x, lp, idx, positions, rope)
+
+    if cfg.remat not in ("full", "dots", "none"):
+        raise ValueError(f"remat {cfg.remat!r}: full, dots or none")
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return layer
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    return functools.partial(ckpt.checkpoint, layer, use_reentrant=False,
+                             **kw)
+
+
 def forward(params, tokens, cfg: TransformerConfig, mesh=None):
-    """tokens [B, S] -> (logits [B, S, V] float32, summed aux loss)."""
+    """tokens [B, S] -> (logits [B, S, V] float32, summed aux loss).
+
+    The stacked ``[L, ...]`` layer parameters are unbound once, so their
+    gradients are stacked once in the backward pass (indexing ``w[i]``
+    per layer would add a zero-filled ``[L, ...]`` gradient per layer).
+    """
     x = shd.constrain(_embed(params, tokens, cfg), mesh, shd.BATCH, None,
                       None)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     rope = _rope_tables(cfg, positions[None, :])
-    cast = cfg.gather_dtype == "bf16"
+    slices = {k: w.unbind(0) for k, w in params["layers"].items()}
     auxes = []
     for i in range(cfg.n_layers):
-        lp = {k: w[i].to(cfg.dtype) if cast else w[i]
-              for k, w in params["layers"].items()}
-        x, aux = _layer_fwd(cfg, mesh, x, lp, i, positions, rope)
+        lp = {k: w[i] for k, w in slices.items()}
+        x, aux = _layer_call(cfg, mesh, i, positions, rope)(x, lp)
         auxes.append(aux)
     logits = shd.constrain(_logits(params, x, cfg), mesh, shd.BATCH, None,
                            shd.MODEL)

@@ -18,27 +18,32 @@ def _is_namedtuple(node) -> bool:
     return isinstance(node, tuple) and hasattr(node, "_fields")
 
 
+def _walk(node, path, out) -> None:
+    if node is None:
+        return
+    if isinstance(node, dict):
+        for k in sorted(node):
+            _walk(node[k], (*path, f"[{k!r}]"), out)
+    elif _is_namedtuple(node):
+        for f in node._fields:
+            _walk(getattr(node, f), (*path, f".{f}"), out)
+    elif isinstance(node, (tuple, list)):
+        for i, x in enumerate(node):
+            _walk(x, (*path, f"[{i}]"), out)
+    else:
+        out.append(("/".join(path), node))
+
+
 def flatten_with_paths(tree) -> list[tuple[str, object]]:
     """``[(path, leaf)]`` in flatten order; ``path`` joins the keys with
-    ``/`` as the JAX package's checkpoints do."""
+    ``/`` as the JAX package's checkpoints do.
+
+    The walkers here are module functions, not closures: a recursive
+    closure is a reference cycle, and one that held the leaves would keep
+    a training state's tensors alive until Python's cyclic collector
+    runs."""
     out = []
-
-    def walk(node, path):
-        if node is None:
-            return
-        if isinstance(node, dict):
-            for k in sorted(node):
-                walk(node[k], (*path, f"[{k!r}]"))
-        elif _is_namedtuple(node):
-            for f in node._fields:
-                walk(getattr(node, f), (*path, f".{f}"))
-        elif isinstance(node, (tuple, list)):
-            for i, x in enumerate(node):
-                walk(x, (*path, f"[{i}]"))
-        else:
-            out.append(("/".join(path), node))
-
-    walk(tree, ())
+    _walk(tree, (), out)
     return out
 
 
@@ -46,23 +51,23 @@ def leaves(tree) -> list:
     return [leaf for _, leaf in flatten_with_paths(tree)]
 
 
+def _build(node, it):
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        return {k: _build(node[k], it) for k in sorted(node)}
+    if _is_namedtuple(node):
+        return type(node)(*(_build(getattr(node, f), it)
+                            for f in node._fields))
+    if isinstance(node, (tuple, list)):
+        return type(node)(_build(x, it) for x in node)
+    return next(it)
+
+
 def unflatten(like, new_leaves):
     """``like``'s structure with ``new_leaves`` in flatten order."""
     it = iter(new_leaves)
-
-    def build(node):
-        if node is None:
-            return None
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        if _is_namedtuple(node):
-            return type(node)(*(build(getattr(node, f))
-                                for f in node._fields))
-        if isinstance(node, (tuple, list)):
-            return type(node)(build(x) for x in node)
-        return next(it)
-
-    out = build(like)
+    out = _build(like, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the tree holds")
     return out

@@ -76,3 +76,16 @@ def test_chip_smoke_refuses_a_host_without_cuda():
         capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+#: the modules of slice 9's training half, each imported by the probe above
+TRAINING_MODULES = ("repro_torch.models.equiformer",
+                    "repro_torch.configs.equiformer_v2",
+                    "repro_torch.launch.train",
+                    "repro_torch.examples.train_lm")
+
+
+def test_training_modules_are_port_modules():
+    names = {".".join(os.path.relpath(p, os.path.dirname(PORT))[:-3]
+                      .split(os.sep)) for p in _port_files()}
+    assert set(TRAINING_MODULES) <= names

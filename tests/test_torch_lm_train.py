@@ -1,0 +1,372 @@
+"""LM training in the port (the training half of slice 9) against the JAX
+package: the five archs' losses and gradients, the remat modes, the
+microbatched training step of ``lm_train_workload``, ``choose_microbatches``,
+the training CLI and the ``train_lm`` example.
+
+Parameters are made by the JAX package's ``transformer.init_params`` and
+carried across with ``convert.params_from_numpy``; tokens come from numpy
+seeds.  Tolerances:
+- losses: rtol 1e-4, atol 1e-4 x |loss| (float32 smoke models, as the LM
+  serving tests hold whole models);
+- gradients, AdamW moments: each leaf within rtol 1e-4 and an atol of
+  1e-4 x the leaf's largest magnitude (float32 sums taken in other orders
+  by XLA and PyTorch, through the layers and the MoE dispatch);
+- parameters after one AdamW step: rtol 1e-5 and an atol of 1e-5 x the
+  leaf's largest magnitude (the first step moves each weight by about
+  ``lr``, whatever the gradient's size);
+- the three remat modes against each other on the CPU: bitwise (the
+  recompute runs the same kernels on the same inputs).
+"""
+
+import ast
+import dataclasses
+import functools
+import os
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import common as jax_common
+from repro.configs import get_arch as jax_get_arch
+from repro.models import params as jax_params
+from repro.models import transformer as jax_transformer
+from repro_torch.configs import common, get_arch
+from repro_torch.core import convert
+from repro_torch.examples import train_lm
+from repro_torch.launch import train as train_cli
+from repro_torch.models import moe, params, transformer
+from repro_torch.training.tree import flatten_with_paths, leaves, \
+    value_and_grad
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ARCHS = ["granite-8b", "gemma3-1b", "qwen2-72b", "moonshot-v1-16b-a3b",
+         "arctic-480b"]
+MOE_ARCHS = ["moonshot-v1-16b-a3b", "arctic-480b"]
+TOL, STEP_TOL = 1e-4, 1e-5
+
+
+def _np(x):
+    if torch.is_tensor(x):
+        return x.detach().to(torch.float32).numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def _close(got, want, tol):
+    got, want = _np(got), _np(want)
+    assert got.shape == want.shape
+    atol = tol * max(float(np.abs(want).max()), 1e-30)
+    np.testing.assert_allclose(got, want, rtol=tol, atol=atol)
+
+
+def _hold_tree(got, want, tol=TOL):
+    """Every leaf of the port's tree against the JAX tree's leaf of the
+    same path."""
+    got = dict(flatten_with_paths(got))
+    want = {"/".join(str(k) for k in p): v for p, v in
+            jax.tree_util.tree_flatten_with_path(want)[0]}
+    assert sorted(got) == sorted(want)
+    for path, w in want.items():
+        g, w = _np(got[path]), np.asarray(w, np.float32)
+        assert g.shape == w.shape, path
+        atol = tol * max(float(np.abs(w).max()), 1e-30)
+        np.testing.assert_allclose(g, w, rtol=tol, atol=atol, err_msg=path)
+
+
+@functools.cache
+def _model(name, **replace):
+    """``(jax config, config, jax params, params)`` of a smoke config."""
+    jcfg = dataclasses.replace(jax_get_arch(name).smoke_config, **replace)
+    jp = jax.jit(functools.partial(jax_transformer.init_params, cfg=jcfg))(
+        jax.random.PRNGKey(0))
+    return (jcfg, convert.transformer_config_from(jcfg), jp,
+            convert.params_from_numpy(jp, "cpu"))
+
+
+def _batch(vocab, b=2, s=32, seed=4):
+    tokens = np.random.default_rng(seed).integers(0, vocab, (b, s)) \
+        .astype(np.int32)
+    batch = {"tokens": tokens, "targets": np.roll(tokens, -1, 1)}
+    return ({k: jnp.asarray(v) for k, v in batch.items()},
+            {k: torch.as_tensor(v) for k, v in batch.items()})
+
+
+def _one_device_mesh():
+    return jax.sharding.Mesh(np.array(jax.devices()[:1]).reshape(1, 1),
+                             ("data", "model"))
+
+
+# -- losses and gradients --------------------------------------------------
+
+CASES = [(n, "smoke") for n in ARCHS] + [(n, 1.25) for n in MOE_ARCHS]
+
+
+@pytest.mark.parametrize("name,cf", CASES)
+def test_loss_and_grads_match_jax(name, cf, monkeypatch):
+    """``loss_fn`` and every gradient leaf against ``jax.value_and_grad``.
+    The MoE archs also at a capacity factor of 1.25, where the dispatch
+    drops assignments: the router, expert and shared-expert gradients
+    pass its index writes (drops share the buffer's cut last row)."""
+    replace = {} if cf == "smoke" else {"capacity_factor": cf}
+    jcfg, cfg, jp, p = _model(name, **replace)
+    jbatch, batch = _batch(jcfg.vocab, b=4, seed=9)
+    keeps = []
+    dispatch = moe._dispatch_group
+
+    def tap(*args, **kwargs):
+        out = dispatch(*args, **kwargs)
+        keeps.append(out[2])
+        return out
+
+    monkeypatch.setattr(moe, "_dispatch_group", tap)
+    jloss, jgrads = jax.jit(jax.value_and_grad(
+        functools.partial(jax_transformer.loss_fn, cfg=jcfg)))(jp, jbatch)
+    loss, grads = value_and_grad(transformer.loss_fn)(p, batch, cfg)
+    assert bool(keeps) == jcfg.moe
+    dropped = sum(int((~k).sum()) for k in keeps)
+    assert (dropped > 0) == (cf != "smoke"), dropped
+    _close(loss, jloss, TOL)
+    _hold_tree(grads, jgrads)
+    if jcfg.moe:
+        moe_leaves = [k for k in grads["layers"]
+                      if k.startswith(("w_router", "we_", "ws_"))]
+        assert "w_router" in moe_leaves and "we_gate" in moe_leaves
+        for k in moe_leaves:
+            assert float(grads["layers"][k].abs().max()) > 0, k
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_remat_modes_give_the_same_grads(name):
+    """"full", "dots" and "none" give bitwise the same loss and gradients
+    on the CPU, with the bf16 per-layer cast inside the checkpoint; and
+    "full" keeps fewer tensors for the backward pass than "none" (a
+    remat that kept everything would be a silent no-op)."""
+    _, base, _, p = _model(name)
+    _, batch = _batch(base.vocab)
+    out, saved = {}, {}
+    for remat in ("full", "dots", "none"):
+        cfg = dataclasses.replace(base, remat=remat, gather_dtype="bf16")
+        n_saved = [0]
+
+        def pack(t, n_saved=n_saved):
+            n_saved[0] += t.numel()
+            return t
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            out[remat] = value_and_grad(transformer.loss_fn)(p, batch, cfg)
+        saved[remat] = n_saved[0]
+    for remat in ("full", "dots"):
+        assert torch.equal(out[remat][0], out["none"][0])
+        for a, b in zip(leaves(out[remat][1]), leaves(out["none"][1]),
+                        strict=True):
+            assert torch.equal(a, b), remat
+    assert saved["full"] < saved["none"], saved
+
+
+def test_checkpoints_only_while_recording_gradients(monkeypatch):
+    from torch.utils import checkpoint as ckpt
+
+    calls = []
+    orig = ckpt.checkpoint
+    monkeypatch.setattr(ckpt, "checkpoint",
+                        lambda *a, **k: calls.append(1) or orig(*a, **k))
+    _, cfg, _, p = _model("granite-8b")
+    cfg = dataclasses.replace(cfg, remat="full")
+    _, batch = _batch(cfg.vocab)
+    with torch.no_grad():
+        transformer.forward(p, batch["tokens"], cfg)
+    assert calls == []
+    transformer.loss_fn(p, batch, cfg)
+    assert len(calls) == cfg.n_layers
+    with pytest.raises(ValueError, match="remat"):
+        transformer.forward(p, batch["tokens"],
+                            dataclasses.replace(cfg, remat="some"))
+
+
+# -- the training workload -------------------------------------------------
+
+@pytest.mark.parametrize("name", ["granite-8b", "moonshot-v1-16b-a3b"])
+def test_microbatched_step_matches_jax(name):
+    """One step of ``lm_train_workload(..., microbatches=2).fn`` against the
+    JAX package's on a one-device CPU mesh: loss, params, m and v."""
+    jcfg, cfg, jp, p = _model(name)
+    shape = common.LMShape("tiny", 32, 4, "train")
+    jshape = jax_common.LMShape("tiny", 32, 4, "train")
+    jw = jax_common.lm_train_workload(jcfg, jshape, _one_device_mesh(),
+                                      microbatches=2)
+    w = common.lm_train_workload(cfg, shape, None, microbatches=2)
+    jbatch, batch = _batch(jcfg.vocab, b=4, seed=5)
+    from repro.training import optimizer as jax_optimizer
+    from repro_torch.training import optimizer
+
+    jp2, jo2, jm = jax.jit(jw.fn)(jp, jax_optimizer.init_state(jp), jbatch)
+    p2, o2, m = w.fn(p, optimizer.init_state(p), batch)
+    _close(m["loss"], jm["loss"], TOL)
+    _close(m["grad_norm"], jm["grad_norm"], TOL)
+    assert int(o2.step) == int(jo2.step) == 1
+    _hold_tree(o2.mu, jo2.mu)
+    _hold_tree(o2.nu, jo2.nu)
+    _hold_tree(p2, jp2, STEP_TOL)
+
+
+def test_microbatches_average_the_full_batch():
+    """The accumulated step's loss is the mean of the microbatch losses,
+    and its gradients within float32 rounding of the whole batch's."""
+    _, cfg, _, p = _model("granite-8b")
+    _, batch = _batch(cfg.vocab, b=4, seed=6)
+    loss, grads = value_and_grad(transformer.loss_fn)(p, batch, cfg)
+    halves = [value_and_grad(transformer.loss_fn)(
+        p, {k: v[i * 2:(i + 1) * 2] for k, v in batch.items()}, cfg)
+        for i in range(2)]
+    torch.testing.assert_close(loss, (halves[0][0] + halves[1][0]) / 2)
+    from repro_torch.training import optimizer
+
+    cfg_opt = optimizer.AdamWConfig(grad_clip=0.0)
+    shape = common.LMShape("tiny", 32, 4, "train")
+    for k in (1, 2):
+        w = common.lm_train_workload(cfg, shape, None, cfg_opt,
+                                     microbatches=k)
+        _, _, m = w.fn(p, optimizer.init_state(p), batch)
+        torch.testing.assert_close(m["loss"], loss)
+
+
+def test_workload_stand_ins_and_flops_match_jax():
+    mesh = _one_device_mesh()
+    for name in ARCHS:
+        jarch, arch = jax_get_arch(name), get_arch(name)
+        for jshape, shape in zip(jax_common.LM_SHAPES[:1],
+                                 common.LM_SHAPES[:1]):
+            jw = jax_common.lm_train_workload(jarch.config, jshape, mesh)
+            w = common.lm_train_workload(arch.config, shape, None)
+            assert (w.name, w.kind) == (jw.name, jw.kind)
+            assert w.model_flops == jw.model_flops
+            assert w.in_shardings is None and w.out_shardings is None
+            got = leaves(w.in_sds)
+            want = jax.tree.leaves(jw.in_sds)
+            assert [tuple(x.shape) for x in got] == [
+                tuple(x.shape) for x in want]
+            assert [str(x.dtype).split(".")[-1] for x in got] == [
+                str(x.dtype) for x in want]
+            assert {x.device.type for x in got} == {"meta"}
+    four = types.SimpleNamespace(size=lambda: 4)
+    one = types.SimpleNamespace(size=lambda: 1)
+    cfg = get_arch("granite-8b").smoke_config
+    shape = common.LM_SHAPES[0]
+    assert common.lm_train_workload(cfg, shape, one).in_shardings is None
+    with pytest.raises(NotImplementedError, match="sharding on DTensor"):
+        common.lm_train_workload(cfg, shape, four)
+    with pytest.raises(NotImplementedError, match="sharding on DTensor"):
+        common.choose_microbatches(cfg, shape, four)
+
+
+def test_tree_sds_matches_jax():
+    for name in ARCHS:
+        jcfg, cfg = jax_get_arch(name).config, get_arch(name).config
+        want = jax_params.tree_sds(jax_transformer.param_specs(jcfg))
+        got = params.tree_sds(transformer.param_specs(cfg))
+        got, want = flatten_with_paths(got), \
+            jax.tree_util.tree_flatten_with_path(want)[0]
+        assert [p for p, _ in got] == [
+            "/".join(str(k) for k in p) for p, _ in want]
+        for (_, g), (_, w) in zip(got, want):
+            assert g.device.type == "meta" and g.shape == w.shape
+            assert str(g.dtype) == f"torch.{w.dtype}"
+
+
+@pytest.mark.parametrize("override", [0, 4])
+def test_choose_microbatches_matches_jax(override):
+    mesh = _one_device_mesh()
+    for name in ARCHS:
+        for which in ("config", "smoke_config"):
+            jcfg = dataclasses.replace(
+                getattr(jax_get_arch(name), which),
+                microbatch_override=override)
+            cfg = convert.transformer_config_from(jcfg)
+            for js, s in zip(jax_common.LM_SHAPES, common.LM_SHAPES):
+                for budget in (2.5e9, 1e8):
+                    got = common.choose_microbatches(cfg, s, None, budget)
+                    assert got == jax_common.choose_microbatches(
+                        jcfg, js, mesh, budget), (name, which, s.name)
+                    assert got == override or not override
+
+
+# -- the CLI and the example -----------------------------------------------
+
+def _cli(tmp_path, steps, *extra):
+    return train_cli.main([
+        "--arch", "granite-8b", "--steps", str(steps), "--batch", "2",
+        "--seq-len", "16", "--device", "cpu", "--ckpt-every", "2",
+        "--ckpt-dir", str(tmp_path / "ck"),
+        "--metrics", str(tmp_path / "m.jsonl"), *extra])
+
+
+def test_train_cli_runs_and_resumes(tmp_path, capsys):
+    from repro_torch.training import checkpoint
+
+    p3, o3, first = _cli(tmp_path, 3)
+    assert [h["step"] for h in first] == [1, 2, 3]
+    state, step = checkpoint.restore(str(tmp_path / "ck"),
+                                     {"params": p3, "opt": o3})
+    assert step == 3
+    for a, b in zip(leaves(state), leaves({"params": p3, "opt": o3}),
+                    strict=True):
+        assert torch.equal(a, b)
+    p, o, resumed = _cli(tmp_path, 5)
+    assert [h["step"] for h in resumed] == [4, 5] and int(o.step) == 5
+    assert "trained 2 steps on cpu" in capsys.readouterr().out
+    # the CLI's step is the workload's: the first step on fresh params
+    cfg = get_arch("granite-8b").smoke_config
+    p0 = transformer.init_params(
+        cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    from repro_torch.training import optimizer
+
+    batch = next(train_cli.token_batches(cfg, batch=2, seq_len=16,
+                                         device="cpu"))
+    step = train_cli.make_step(cfg, batch=2, seq_len=16,
+                               opt_cfg=optimizer.AdamWConfig(
+                                   lr=3e-3, warmup_steps=1, total_steps=5))
+    assert float(step(p0, optimizer.init_state(p0), batch)[2]["loss"]) \
+        == first[0]["loss"]
+
+
+def test_train_cli_refuses_other_families(tmp_path):
+    with pytest.raises(SystemExit, match="gnn arch"):
+        train_cli.main(["--arch", "gin-tu", "--device", "cpu",
+                        "--ckpt-dir", str(tmp_path)])
+
+
+def _smoke_flag(path):
+    """The keywords of the ``--smoke`` argument of a CLI source file."""
+    tree = ast.parse(open(path).read())
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call) and node.args
+                and isinstance(node.args[0], ast.Constant)
+                and node.args[0].value == "--smoke"):
+            return {k.arg: ast.literal_eval(k.value) for k in node.keywords
+                    if k.arg in ("action", "default")}
+    raise AssertionError(f"no --smoke flag in {path}")
+
+
+def test_smoke_flag_cannot_be_switched_off(tmp_path):
+    """The reference caveat, kept: ``--smoke`` is ``store_true`` with
+    ``default=True`` in both CLIs, so the CLI always trains the smoke
+    config, with or without the flag."""
+    want = {"action": "store_true", "default": True}
+    assert _smoke_flag(os.path.join(ROOT, "src/repro/launch/train.py")) \
+        == want
+    assert _smoke_flag(train_cli.__file__) == want
+    smoke = get_arch("granite-8b").smoke_config
+    for extra in ((), ("--smoke",)):
+        p, _, _ = _cli(tmp_path / str(len(extra)), 1, *extra)
+        assert p["embed"].shape == (smoke.vocab, smoke.d_model)
+
+
+def test_train_lm_example_on_cpu(tmp_path, capsys):
+    hist = train_lm.main(["--steps", "3", "--batch", "2", "--seq-len", "32",
+                          "--device", "cpu", "--ckpt-dir", str(tmp_path)])
+    assert [h["step"] for h in hist] == [1, 2, 3]
+    out = capsys.readouterr().out
+    assert "granite-100m" in out and "loss" in out

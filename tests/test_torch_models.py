@@ -331,10 +331,10 @@ def test_padded_sizes_match_jax_input_specs():
 
 def test_get_arch_for_ported_and_unported_names():
     assert configs.arch_names() == [
-        "arctic-480b", "dcn-v2", "gat-cora", "gatedgcn", "gemma3-1b",
-        "gin-tu", "granite-8b", "moonshot-v1-16b-a3b", "qwen2-72b"]
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        configs.get_arch("equiformer-v2")
+        "arctic-480b", "dcn-v2", "equiformer-v2", "gat-cora", "gatedgcn",
+        "gemma3-1b", "gin-tu", "granite-8b", "moonshot-v1-16b-a3b",
+        "qwen2-72b"]
+    assert configs.get_arch("equiformer-v2").name == "equiformer-v2"
     with pytest.raises(NotImplementedError, match="slice 10"):
         configs.get_arch("ptmt-mining")
     with pytest.raises(KeyError, match="unknown arch"):
