@@ -135,10 +135,26 @@ launch, and checks them:
     resume, ms per step, graphs/s, the share of the float32 rate, the
     peak; (e) one equiformer-v2 forward at CONFIG on ``minibatch_lg``
     (169,984 nodes, 168,960 edges in one chunk), timed, with its peak;
-17. one JSON line naming every kernel with its launches, error and times;
-18. last line: ``{"ok": true, "device": {...}}``.
+17. sharding and the dry run: (a) the ``ptmt-mining`` step at its CONFIG
+    (delta=600, l_max=6, omega=20) with ``backend="cuda"`` on a one-rank
+    NCCL ``DeviceMesh`` at ``mine_1m`` (2,048 x 2,048 slots, its
+    ``CodeCounts`` byte for byte those of ``backend="torch"``, the plain
+    version, on the card) and ``mine_xl`` (8,192 x 4,096), each zone a
+    seeded window of the full-size graph (``mining_batch``), one B3 launch
+    per step, ms per step, edge slots/s, B3's share and the peak; (b) the
+    dry run (``launch/dryrun.py``) of granite-8b ``train_4k`` and
+    qwen2-72b ``decode_32k`` on the 16 x 16 mesh, arctic-480b
+    ``long_500k`` and moonshot ``train_4k`` on 2 x 16 x 16, and the four
+    mining cells, one subprocess each on a fake world of 256 or 512 ranks,
+    every record ``"ok"``, ``report``'s table; (c) granite-8b
+    ``decode_32k`` and ``train_4k`` at 2 layers run for real as rank 0 of
+    the 16 x 16 mesh (a fake world, real CUDA tensors of a rank's size):
+    FLOPs equal to the dry run's, ``max_memory_allocated`` within 0.5-2 x
+    its per-rank peak; B3's launches as (a) predicts, every other count 0;
+18. one JSON line naming every kernel with its launches, error and times;
+19. last line: ``{"ok": true, "device": {...}}``.
 
-Every path of phases 5-7 and 9-16 (but for phase 12's threaded check)
+Every path of phases 5-7 and 9-17 (but for phase 12's threaded check)
 runs with the kernels' launch counts
 set to 0 just before it and read just after; a kernel its path should
 launch but did not (or, where a count is set, launched another number of
@@ -280,6 +296,28 @@ TRAIN_EQ_LAYERS = 3
 # "none"
 TRAIN_LM_LAYERS, TRAIN_LM_BATCH, TRAIN_LM_MICRO = 4, 16, 4
 TRAIN_REMAT_LAYERS = 2
+# sharding and the dry run (phase 17).  (a) the ptmt-mining step at its
+# CONFIG with backend="cuda" on a one-rank NCCL mesh, at these shapes
+# (True: held against backend="torch", the plain version, on the card),
+# out_cap raised to the batch's slots, timed over MINE_REPS steps; each
+# zone is a window of MINE_FILL..1 x e_cap consecutive edges of the
+# full-size graph from a seeded start, its valid prefix, and a seeded
+# sign of +-1.  (b) these dry-run cells through
+# dryrun.run_cell, one subprocess each, DRY_JOBS at once.  (c) these cells
+# at DRY_LAYERS layers run for real as rank 0 of the single mesh on a fake
+# world: FLOPs equal to the dry run's, the card's peak within DRY_MEM x
+# the dry run's per-rank peak.
+MINE_SHAPES = (("mine_1m", True), ("mine_xl", False))
+MINE_REPS, MINE_FILL, MINE_SEED = 3, 0.25, 17
+DRY_CELLS = (("granite-8b", "train_4k", "single"),
+             ("qwen2-72b", "decode_32k", "single"),
+             ("arctic-480b", "long_500k", "multi"),
+             ("moonshot-v1-16b-a3b", "train_4k", "multi"),
+             *(("ptmt-mining", s, "single") for s in (
+                 "mine_1m", "mine_dense", "mine_wide", "mine_xl")))
+DRY_JOBS = 7
+DRY_CHECK = (("granite-8b", "decode_32k"), ("granite-8b", "train_4k"))
+DRY_LAYERS, DRY_MEM = 2, (0.5, 2.0)
 
 
 def log(msg: str) -> None:
@@ -2932,6 +2970,219 @@ def train_phase() -> None:
             "kernel launched")
 
 
+# -- sharding and the dry run (phase 17) -----------------------------------
+
+def mining_batch(shape, graph, seed: int = MINE_SEED):
+    """Phase 17's zone batch ``[n_zones, e_cap]``: zone z holds the
+    ``L_z`` consecutive edges of ``graph`` (time-sorted) from a seeded
+    start, ``L_z`` uniform in [MINE_FILL x e_cap, e_cap], valid on that
+    prefix and zero past it; its sign a seeded +-1."""
+    rng = np.random.default_rng(seed)
+    z, e = shape.n_zones, shape.e_cap
+    starts = rng.integers(0, graph.n_edges - e, z)
+    fill = rng.integers(int(MINE_FILL * e), e + 1, z)
+    idx = starts[:, None] + np.arange(e)[None, :]
+    valid = np.arange(e)[None, :] < fill[:, None]
+    cols = [np.where(valid, np.asarray(x)[idx], 0).astype(np.int32)
+            for x in (graph.u, graph.v, graph.t)]
+    signs = rng.choice(np.array([-1, 1], np.int32), z)
+    return (*cols, valid, signs)
+
+
+def mining_step_phase(graph) -> int:
+    """Phase 17 (a): the ``ptmt-mining`` step at its CONFIG with
+    ``backend="cuda"`` on a one-rank NCCL ``DeviceMesh`` at each of
+    MINE_SHAPES; returns the B3 launches of its counted steps."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import ptmt
+    from repro_torch.kernels.zone_scan import ops
+
+    launches = 0
+    on_card = torch.device(DEVICE).type == "cuda"
+    with tempfile.TemporaryDirectory() as tmp:
+        if on_card:
+            torch.cuda.set_device(0)
+        dist.init_process_group(
+            "nccl" if on_card else "gloo",
+            store=dist.FileStore(os.path.join(tmp, "nccl"), 1), rank=0,
+            world_size=1)
+        try:
+            mesh = init_device_mesh(torch.device(DEVICE).type, (1,),
+                                    mesh_dim_names=("z",))
+            for name, plain in MINE_SHAPES:
+                shape = next(s for s in ptmt.MINING_SHAPES
+                             if s.name == name)
+                slots = shape.n_zones * shape.e_cap
+                # CONFIG's out_cap (65,536 rows) overflows: the windows
+                # hold more unique codes; the merge takes the whole table
+                cfg = dataclasses.replace(ptmt.CONFIG, backend="cuda",
+                                          out_cap=slots)
+                batch = [torch.as_tensor(x, device=DEVICE)
+                         for x in mining_batch(shape, graph)]
+                step = ptmt.mining_workload(cfg, shape, mesh).fn
+                step(*batch)                                   # warm-up
+                torch.cuda.reset_peak_memory_stats()
+                (counts, ovf), times = timed_runs_of(
+                    lambda: step(*batch), MINE_REPS)
+                peak = torch.cuda.max_memory_allocated()
+                n = ops.launches["zone_scan_dense"] - launches
+                launches = ops.launches["zone_scan_dense"]
+                if int(ovf) or n != MINE_REPS + 1:
+                    raise SystemExit(f"mining {name}: overflow {int(ovf)}, "
+                                     f"{n} B3 launches in {MINE_REPS + 1} "
+                                     "steps")
+                u, v, t, valid, signs = batch
+                # every valid slot seeds one process, counted with its
+                # zone's sign
+                seeded = int((valid.sum(1) * signs).sum())
+                if int(counts.counts[counts.unique_mask].sum()) != seeded:
+                    raise SystemExit(f"mining {name}: the counts sum to "
+                                     f"another total than {seeded}")
+                b3_ms = cuda_ms(lambda: ops.launch_zone_kernel(
+                    u, v, t, valid, delta=cfg.delta, l_max=cfg.l_max),
+                    reps=3)
+                ops.launches["zone_scan_dense"] = launches  # not the path's
+                ms = min(times) * 1e3
+                log(f"[mine17] ptmt-mining {name} ({shape.n_zones} x "
+                    f"{shape.e_cap} = {slots} slots, "
+                    f"{int(valid.sum())} valid), backend cuda, 1 NCCL "
+                    f"rank: {ms:.3f} ms per step (best of {MINE_REPS}; "
+                    + ", ".join(f"{x * 1e3:.3f}" for x in times)
+                    + f"), {slots / min(times):.0f} edge slots/s, 1 B3 "
+                    f"launch per step, B3 alone {b3_ms:.3f} ms = "
+                    f"{b3_ms / ms:.1%} of the step, peak "
+                    f"{peak / 1e9:.2f} GB, {int(counts.unique_mask.sum())} "
+                    f"codes, their counts summing to the {seeded} signed "
+                    "seeds")
+                if plain:
+                    ref = ptmt.mining_workload(dataclasses.replace(
+                        cfg, backend="torch"), shape, mesh).fn
+                    t0 = time.perf_counter()
+                    want, _ = ref(*batch)
+                    torch.cuda.synchronize()
+                    plain_s = time.perf_counter() - t0
+                    for part in ("codes", "counts", "unique_mask"):
+                        a = getattr(counts, part).cpu().numpy()
+                        b = getattr(want, part).cpu().numpy()
+                        if a.dtype != b.dtype or a.tobytes() != b.tobytes():
+                            raise SystemExit(f"mining {name}: {part} != the "
+                                             "plain version's")
+                    log(f"[mine17] {name}: CodeCounts == backend torch (the "
+                        f"plain version) on the card, byte for byte "
+                        f"({plain_s:.1f}s)")
+                del batch, counts
+                torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    return launches
+
+
+_DRY_VS_CARD = """
+import json, sys
+sys.path.insert(0, "src")
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+from repro_torch.launch import dryrun
+out = []
+for arch, shape in {cells!r}:
+    real = dryrun.run_real(arch, shape, n_layers={layers}, device={device!r})
+    torch.cuda.empty_cache()
+    dry = dryrun.run_cell(arch, shape, "single", {out!r},
+                          n_layers={layers}, tag="check")
+    out.append([arch, shape, real, dry])
+print("RESULT", json.dumps(out))
+"""
+
+
+def dryrun_phase() -> None:
+    """Phase 17 (b) and (c), in subprocesses (the fake world of 256 or
+    512 ranks must be its process's default group): (b) DRY_CELLS through
+    ``dryrun.run_cell``, every record ``"ok"``, and ``report``'s table;
+    (c) DRY_CHECK at DRY_LAYERS layers run for real on the card against
+    the dry run."""
+    import threading
+
+    from repro_torch.launch import dryrun
+
+    out = os.path.join(HERE, "build", "dryrun_smoke")
+    shutil.rmtree(out, ignore_errors=True)
+    failures = []
+    t0 = time.perf_counter()
+    sweep = threading.Thread(target=lambda: failures.extend(
+        dryrun.orchestrate(out, cells=list(DRY_CELLS), jobs=DRY_JOBS,
+                           force=True, timeout=900)))
+    sweep.start()
+    code = _DRY_VS_CARD.format(cells=DRY_CHECK, layers=DRY_LAYERS,
+                               out=os.path.join(out, "check"),
+                               device=DEVICE)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=HERE,
+                          capture_output=True, text=True, timeout=900)
+    check_s = time.perf_counter() - t0
+    sweep.join()
+    log(f"[dry17] (b) {len(DRY_CELLS)} cells, {DRY_JOBS} at once, "
+        f"{time.perf_counter() - t0:.1f}s; (c) {check_s:.1f}s")
+    dryrun.report(out)
+    if failures:
+        raise SystemExit(f"dry run: cells failed: {failures}")
+    for a, s, m in DRY_CELLS:
+        with open(dryrun.cell_path(out, a, s, m)) as f:
+            rec = json.load(f)
+        log(f"[dry17] {a}/{s}/{m}: {rec['compile_s']:.1f}s traced, "
+            f"{rec['flops_per_chip']:.4g} FLOP and "
+            f"{rec['collective_bytes_per_chip']:.4g} collective bytes per "
+            f"rank, peak {rec['peak_bytes_per_chip'] / 1e9:.3f} GB "
+            f"({'fits' if rec['fits_h100'] else 'does not fit'} 80 GB), "
+            f"dominant {rec['dominant']}")
+    if proc.returncode != 0 or "RESULT " not in proc.stdout:
+        raise SystemExit("dry run vs the card failed:\n"
+                         + proc.stderr[-3000:])
+    rows = json.loads(proc.stdout.split("RESULT ", 1)[1])
+    for arch, shape, real, dry in rows:
+        ratio = real["peak_bytes"] / dry["peak_bytes_per_chip"]
+        log(f"[dry17] (c) {arch}/{shape} at {DRY_LAYERS} layers as rank 0 "
+            f"of 256 on the card: FLOP {real['flops']} (dry run "
+            f"{dry['flops_per_chip']:.0f}), max_memory_allocated "
+            f"{real['peak_bytes'] / 1e9:.3f} GB = {ratio:.3f} x the dry "
+            f"run's peak {dry['peak_bytes_per_chip'] / 1e9:.3f} GB, "
+            f"{real['ms']:.1f} ms per step (host-bound: DTensor dispatch)")
+        if real["flops"] != dry["flops_per_chip"]:
+            raise SystemExit(f"{arch}/{shape}: the card's FLOPs "
+                             f"{real['flops']} != the dry run's")
+        if not DRY_MEM[0] <= ratio <= DRY_MEM[1]:
+            raise SystemExit(f"{arch}/{shape}: peak ratio {ratio:.3f} "
+                             f"outside {DRY_MEM}")
+
+
+def shard_dry_phase(graph) -> int:
+    """Phase 17: every launch count at 0 before; (a) the mining step, (b)
+    and (c) the dry run; after it B3's count must equal (a)'s steps and
+    every other count 0.  Returns B3's launches."""
+    for ops in kernel_ops():
+        ops.reset_launches()
+    t0 = time.perf_counter()
+    launches = mining_step_phase(graph)
+    log(f"[mine17] (a) {time.perf_counter() - t0:.1f}s")
+    dryrun_phase()
+    counts = {k: v for ops in kernel_ops()
+              for k, v in (*ops.launches.items(),
+                           *getattr(ops, "plans", {}).items())}
+    want = len(MINE_SHAPES) * (MINE_REPS + 1)
+    if counts.pop("zone_scan_dense") != want or launches != want \
+            or any(counts.values()):
+        raise SystemExit(f"phase 17 launches: B3 {launches} (expected "
+                         f"{want}), others {counts}")
+    log(f"[shard17] B3 launched {launches} times as predicted "
+        f"({len(MINE_SHAPES)} shapes x {MINE_REPS + 1} steps), every other "
+        "count 0")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3348,7 +3599,12 @@ def main() -> int:
     train_phase()
     log(f"[train16] phase {time.perf_counter() - t_phase:.1f}s")
 
-    # -- 17. kernels ----------------------------------------------------
+    # -- 17. sharding and the dry run ------------------------------------
+    t_phase = time.perf_counter()
+    dense_launches += shard_dry_phase(graph)
+    log(f"[shard17] phase {time.perf_counter() - t_phase:.1f}s")
+
+    # -- 18. kernels ----------------------------------------------------
     rows = (
         ("fused_zone_scan_flat", SRC + "fused_zone_scan.cu", TPU + ":429",
          launches),

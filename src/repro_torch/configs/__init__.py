@@ -1,22 +1,14 @@
 """Architecture registry: ``get_arch(<id>)`` resolves here.
 
-The archs ported so far: the five LM archs of ``models/transformer.py``,
-the three GNN archs of ``models/gnn.py``, equiformer-v2
-(``models/equiformer.py``) and the DCN-v2 recsys arch.
-Each entry is a :class:`common.ArchDef` with a full config, a reduced
-smoke config (CPU tests) and its shape set.  The JAX
-package's other archs raise ``NotImplementedError`` naming the ROADMAP
-slice that ports them.
+10 assigned architectures (5 LM, 4 GNN, 1 recsys) + the paper's own PTMT
+mining configuration.  Each entry is a :class:`common.ArchDef` with a full
+config (the dry run, and the card at cut depth), a reduced smoke config
+(CPU tests), its shape set and its workload builder.
 """
 
 from __future__ import annotations
 
-from .common import ArchDef  # noqa: F401
-
-#: archs of the JAX package not ported yet -> the slice that ports them
-UNPORTED = {
-    "ptmt-mining": "slice 10 (cost analysis: the dry-run cells)",
-}
+from .common import ArchDef, Workload  # noqa: F401
 
 
 def _registry() -> dict:
@@ -30,6 +22,7 @@ def _registry() -> dict:
         gin_tu,
         granite_8b,
         moonshot_v1_16b_a3b,
+        ptmt,
         qwen2_72b,
     )
 
@@ -44,6 +37,7 @@ def _registry() -> dict:
         gin_tu.ARCH,
         gat_cora.ARCH,
         dcn_v2.ARCH,
+        ptmt.ARCH,       # the paper's own workload (mining)
     ]
     return {a.name: a for a in archs}
 
@@ -60,12 +54,9 @@ def registry() -> dict:
 
 def get_arch(name: str) -> ArchDef:
     reg = registry()
-    if name in reg:
-        return reg[name]
-    if name in UNPORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet: ROADMAP {UNPORTED[name]}")
-    raise KeyError(f"unknown arch {name!r}; have {sorted(reg)}")
+    if name not in reg:
+        raise KeyError(f"unknown arch {name!r}; have {sorted(reg)}")
+    return reg[name]
 
 
 def arch_names() -> list[str]:
@@ -74,3 +65,14 @@ def arch_names() -> list[str]:
 
 def lm_arch_names() -> list[str]:
     return sorted(a.name for a in registry().values() if a.family == "lm")
+
+
+def all_cells(include_mining: bool = True) -> list[tuple[str, str]]:
+    """Every (arch, shape) dry-run cell — 40 assigned + 4 mining."""
+    out = []
+    for arch in registry().values():
+        if arch.family == "mining" and not include_mining:
+            continue
+        for shape in arch.shapes:
+            out.append((arch.name, shape.name))
+    return sorted(out)

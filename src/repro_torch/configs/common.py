@@ -1,67 +1,104 @@
-"""Registry entries and the training workload shared by all architecture
-configs.
+"""Workload plumbing shared by all architecture configs.
 
-A training cell resolves to a :class:`Workload`: a step function plus
-meta-tensor stand-ins (shape and dtype, no storage) for its inputs.  The
-port places tensors on one device only, so its shardings are ``None``;
-a mesh of more than one device raises until ROADMAP's sharding on
-DTensor.  The prefill and decode workloads wait for slice 10 (the dry
-run).
+Every (arch x input-shape) cell resolves to a :class:`Workload`: a step
+function, meta-tensor stand-ins (shape and dtype, no storage) for its
+inputs and their shardings (:class:`~repro_torch.models.sharding.
+NamedSharding` trees, ``None`` without a mesh).  ``launch/dryrun.py``
+runs a cell's step once on fake tensors placed by those shardings on the
+production mesh of a fake process group; the tests and ``chip_smoke.py``
+run reduced configs for real.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable
 
 import torch
 
-from repro_torch.models import params as prm, transformer
+from repro_torch.models import params as prm, sharding as shd, transformer
 from repro_torch.training import optimizer
 from repro_torch.training.tree import leaves, tree_map, value_and_grad
 
-_SHARDING_TODO = "ROADMAP queue A: sharding on DTensor"
+#: the ROADMAP item that puts the GNN, equiformer and DCN-v2 cells on a mesh
+MESH_TODO = ("ROADMAP queue A: GNN, equiformer and DCN-v2 on a mesh: "
+             "B4/B5 as custom ops")
 
 
 @dataclasses.dataclass
 class Workload:
-    """One training cell: ``fn(*args)`` with meta-tensor arg stand-ins."""
+    """One dry-run cell: ``fn(*args)`` with arg stand-ins and shardings."""
 
     name: str                 # e.g. "granite-8b/train_4k"
-    kind: str                 # train | prefill | decode
+    kind: str                 # train | prefill | decode | serve | mine
     fn: Callable
     in_sds: tuple
     in_shardings: Any = None
-    out_shardings: Any = None
     model_flops: float = 0.0  # 6*N*D (dense) or 6*N_active*D (MoE)
 
+    def place(self, args) -> tuple:
+        """``args`` (real or fake tensors shaped like ``in_sds``) laid out
+        by ``in_shardings`` as DTensors (unchanged without shardings)."""
+        if self.in_shardings is None:
+            return tuple(args)
+        return tuple(prm.place_tree(a, s)
+                     for a, s in zip(args, self.in_shardings, strict=True))
 
-def single_device(mesh) -> None:
-    """Raises unless ``mesh`` is ``None`` or holds one device: placing a
-    workload's tensors across devices waits for DTensor."""
-    if mesh is not None and mesh.size() != 1:
+
+def no_mesh(mesh) -> None:
+    """Raises on a mesh of more than one device: the GNN, equiformer and
+    DCN-v2 steps run their B4/B5 kernels through ctypes, which neither
+    fake tensors nor DTensor can trace."""
+    if shd.on_mesh(mesh):
         raise NotImplementedError(
-            f"a workload on a {mesh.size()}-device mesh is not ported yet: "
-            f"{_SHARDING_TODO}")
+            f"a GNN, equiformer or DCN-v2 workload on a {mesh.size()}-device "
+            f"mesh is not ported yet: {MESH_TODO}")
+
+
+def _replicated(mesh):
+    return shd.named_sharding(mesh, (), ())
+
+
+def _sds(shape, dtype):
+    return torch.empty(shape, dtype=dtype, device="meta")
 
 
 @dataclasses.dataclass
 class ArchDef:
-    """Registry entry: full config + reduced smoke config + shape table.
-
-    The JAX package's entries also carry a dry-run workload function; that
-    waits for ROADMAP slice 10 here (:func:`lm_train_workload` and
-    ``gnn_common.gnn_workload`` build the training cells).
-    """
+    """Registry entry: full config + reduced smoke config + shape table."""
 
     name: str
     family: str                       # lm | gnn | recsys | mining
     config: Any
     smoke_config: Any
     shapes: tuple
+    workload_fn: Callable             # (config, shape, mesh) -> Workload
 
     def shape(self, shape_name: str):
         return next(s for s in self.shapes if s.name == shape_name)
+
+    def workload(self, shape_name: str, mesh) -> Workload:
+        return self.workload_fn(self.config, self.shape(shape_name), mesh)
+
+    def smoke_workload(self, shape_name: str, mesh) -> Workload:
+        return self.workload_fn(
+            self.smoke_config, self.shape(shape_name), mesh)
+
+    def workload_with_depth(self, shape_name: str, mesh,
+                            n_layers: int) -> Workload | None:
+        """The full config at ``n_layers`` layers, with shape-dependent
+        choices (the microbatch count) pinned to the full-depth config's,
+        as the JAX package's calibration variants are."""
+        if not hasattr(self.config, "n_layers"):
+            return None
+        shape = self.shape(shape_name)
+        cfg = dataclasses.replace(self.config, n_layers=n_layers)
+        kw = {}
+        if self.family == "lm" and getattr(shape, "kind", "") == "train":
+            kw["microbatches"] = choose_microbatches(
+                self.config, shape, mesh)
+        return self.workload_fn(cfg, shape, mesh, **kw)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,9 +140,16 @@ def serve_param_specs(cfg) -> dict:
 
 
 def _batch_shards(mesh, b: int) -> int:
-    """How many ways the batch dim shards on this mesh (one device: 1)."""
-    single_device(mesh)
-    return 1
+    """How many ways the batch dim actually shards on this mesh."""
+    if mesh is None:
+        return 1
+    axes = shd.resolve((shd.BATCH,), (b,), mesh)[0]
+    if axes is None:
+        return 1
+    if isinstance(axes, str):
+        axes = (axes,)
+    sizes = shd.mesh_sizes(mesh)
+    return math.prod(sizes[a] for a in axes)
 
 
 def choose_microbatches(cfg, shape: LMShape, mesh,
@@ -129,23 +173,35 @@ def choose_microbatches(cfg, shape: LMShape, mesh,
     return k
 
 
+def _tokens(mesh, b: int, s: int):
+    return (_sds((b, s), torch.int32),
+            shd.named_sharding(mesh, (shd.BATCH, None), (b, s))
+            if mesh is not None else None)
+
+
 def lm_train_workload(cfg, shape: LMShape, mesh,
                       opt_cfg: optimizer.AdamWConfig | None = None,
                       microbatches: int | None = None) -> Workload:
     """The LM training step on ``shape``: ``value_and_grad`` of
     ``transformer.loss_fn`` and AdamW.  With ``k > 1`` microbatches (the
-    batch rows split into ``k`` consecutive parts) the gradients are
-    summed in float32, then the loss and the gradients divided by ``k``,
-    as the JAX package's accumulation scan does."""
-    single_device(mesh)
+    batch rows split into ``k`` consecutive parts, each laid out on the
+    batch axes) the gradients are summed in float32, then the loss and
+    the gradients divided by ``k``, as the JAX package's accumulation scan
+    does."""
     opt_cfg = opt_cfg or optimizer.AdamWConfig()
-    p_sds = prm.tree_sds(transformer.param_specs(cfg))
+    specs = transformer.param_specs(cfg)
+    p_sds = prm.tree_sds(specs)
+    p_shd = prm.tree_shardings(mesh, specs)
     o_sds = optimizer.AdamWState(
-        step=torch.empty((), dtype=torch.int32, device="meta"),
-        mu=p_sds, nu=p_sds)
+        step=_sds((), torch.int32), mu=p_sds, nu=p_sds)
     b, s = shape.global_batch, shape.seq_len
-    tok_sds = torch.empty((b, s), dtype=torch.int32, device="meta")
+    tok_sds, tok_shd = _tokens(mesh, b, s)
     batch_sds = {"tokens": tok_sds, "targets": tok_sds}
+    shardings = None
+    if mesh is not None:
+        o_shd = optimizer.AdamWState(step=_replicated(mesh), mu=p_shd,
+                                     nu=p_shd)
+        shardings = (p_shd, o_shd, {"tokens": tok_shd, "targets": tok_shd})
     k = microbatches or choose_microbatches(cfg, shape, mesh)
     grad_fn = value_and_grad(transformer.loss_fn)
 
@@ -153,14 +209,15 @@ def lm_train_workload(cfg, shape: LMShape, mesh,
         if k == 1:
             loss, grads = grad_fn(params, batch, cfg, mesh)
         else:
-            split = {n: x.reshape(k, x.shape[0] // k, *x.shape[1:])
-                     for n, x in batch.items()}
+            m = b // k
             loss = 0.0
             grads = tree_map(
                 lambda p: torch.zeros_like(p, dtype=torch.float32), params)
             for i in range(k):
-                l, g = grad_fn(params, {n: x[i] for n, x in split.items()},
-                               cfg, mesh)
+                mb = {n: shd.constrain(x[i * m:(i + 1) * m], mesh,
+                                       shd.BATCH, None)
+                      for n, x in batch.items()}
+                l, g = grad_fn(params, mb, cfg, mesh)
                 for acc, x in zip(leaves(grads), leaves(g), strict=True):
                     acc.add_(x.to(torch.float32))
                 loss = loss + l
@@ -175,6 +232,58 @@ def lm_train_workload(cfg, shape: LMShape, mesh,
 
     return Workload(
         name=f"{cfg.name}/{shape.name}", kind="train", fn=step,
-        in_sds=(p_sds, o_sds, batch_sds),
+        in_sds=(p_sds, o_sds, batch_sds), in_shardings=shardings,
         model_flops=6.0 * lm_active_params(cfg) * b * s,
     )
+
+
+def lm_prefill_workload(cfg, shape: LMShape, mesh) -> Workload:
+    specs = serve_param_specs(cfg)
+    b, s = shape.global_batch, shape.seq_len
+    tok_sds, tok_shd = _tokens(mesh, b, s)
+
+    @torch.no_grad()
+    def step(params, tokens):
+        logits, _ = transformer.forward(params, tokens, cfg, mesh)
+        return logits
+
+    return Workload(
+        name=f"{cfg.name}/{shape.name}", kind="prefill", fn=step,
+        in_sds=(prm.tree_sds(specs), tok_sds),
+        in_shardings=None if mesh is None else (
+            prm.tree_shardings(mesh, specs), tok_shd),
+        model_flops=2.0 * lm_active_params(cfg) * b * s,
+    )
+
+
+def lm_decode_workload(cfg, shape: LMShape, mesh) -> Workload:
+    specs = serve_param_specs(cfg)
+    b, s = shape.global_batch, shape.seq_len
+    c_specs = transformer.cache_specs(cfg, b, s)
+    tok_sds, tok_shd = _tokens(mesh, b, 1)
+    shardings = None
+    if mesh is not None:
+        shardings = (prm.tree_shardings(mesh, specs),
+                     prm.tree_shardings(mesh, c_specs), tok_shd,
+                     _replicated(mesh))
+
+    @torch.no_grad()
+    def step(params, cache, tokens, cache_len):
+        return transformer.serve_step(
+            params, cache, tokens, cache_len, cfg, mesh)
+
+    return Workload(
+        name=f"{cfg.name}/{shape.name}", kind="decode", fn=step,
+        in_sds=(prm.tree_sds(specs), prm.tree_sds(c_specs), tok_sds,
+                _sds((), torch.int32)),
+        in_shardings=shardings,
+        model_flops=2.0 * lm_active_params(cfg) * b,
+    )
+
+
+def lm_workload(cfg, shape: LMShape, mesh, **kw) -> Workload:
+    if shape.kind == "train":
+        return lm_train_workload(cfg, shape, mesh, **kw)
+    if shape.kind == "prefill":
+        return lm_prefill_workload(cfg, shape, mesh)
+    return lm_decode_workload(cfg, shape, mesh)

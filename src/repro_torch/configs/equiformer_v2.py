@@ -8,7 +8,7 @@ coordinates; their graph batches carry random unit-scale positions
 from repro_torch.models.equiformer import EquiformerConfig
 
 from .common import ArchDef
-from .gnn_common import GNN_SHAPES
+from .gnn_common import GNN_SHAPES, gnn_workload
 
 CONFIG = EquiformerConfig(
     name="equiformer-v2",
@@ -32,5 +32,5 @@ SMOKE = EquiformerConfig(
 
 ARCH = ArchDef(
     name="equiformer-v2", family="gnn", config=CONFIG, smoke_config=SMOKE,
-    shapes=GNN_SHAPES,
+    shapes=GNN_SHAPES, workload_fn=gnn_workload,
 )

@@ -4,7 +4,7 @@
 from repro_torch.models.gnn import GNNConfig
 
 from .common import ArchDef
-from .gnn_common import GNN_SHAPES
+from .gnn_common import GNN_SHAPES, gnn_workload
 
 CONFIG = GNNConfig(
     name="gat-cora",
@@ -28,5 +28,5 @@ SMOKE = GNNConfig(
 
 ARCH = ArchDef(
     name="gat-cora", family="gnn", config=CONFIG, smoke_config=SMOKE,
-    shapes=GNN_SHAPES,
+    shapes=GNN_SHAPES, workload_fn=gnn_workload,
 )

@@ -5,7 +5,7 @@ import torch
 
 from repro_torch.models.transformer import TransformerConfig
 
-from .common import LM_SHAPES, ArchDef
+from .common import LM_SHAPES, ArchDef, lm_workload
 
 CONFIG = TransformerConfig(
     name="gemma3-1b",
@@ -50,5 +50,5 @@ SMOKE = TransformerConfig(
 
 ARCH = ArchDef(
     name="gemma3-1b", family="lm", config=CONFIG, smoke_config=SMOKE,
-    shapes=LM_SHAPES,
+    shapes=LM_SHAPES, workload_fn=lm_workload,
 )

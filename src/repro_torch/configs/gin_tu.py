@@ -4,7 +4,7 @@
 from repro_torch.models.gnn import GNNConfig
 
 from .common import ArchDef
-from .gnn_common import GNN_SHAPES
+from .gnn_common import GNN_SHAPES, gnn_workload
 
 CONFIG = GNNConfig(
     name="gin-tu",
@@ -26,5 +26,5 @@ SMOKE = GNNConfig(
 
 ARCH = ArchDef(
     name="gin-tu", family="gnn", config=CONFIG, smoke_config=SMOKE,
-    shapes=GNN_SHAPES,
+    shapes=GNN_SHAPES, workload_fn=gnn_workload,
 )

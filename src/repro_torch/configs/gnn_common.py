@@ -1,5 +1,7 @@
 """GNN shapes, the specialisation of an arch config to a shape, input
-stand-ins and the training workload (the GNN archs and equiformer)."""
+stand-ins, their shardings and the training workload (the GNN archs and
+equiformer).  The workload runs on no mesh or a one-device mesh; a larger
+mesh raises (``common.MESH_TODO``)."""
 
 from __future__ import annotations
 
@@ -7,11 +9,12 @@ import dataclasses
 
 import torch
 
-from repro_torch.models import equiformer, gnn, params as prm
+from repro_torch.models import equiformer, gnn, params as prm, \
+    sharding as shd
 from repro_torch.training import optimizer
 from repro_torch.training.tree import value_and_grad
 
-from .common import Workload, single_device
+from .common import Workload, _replicated, no_mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,6 +81,20 @@ def graph_input_specs(shape: GNNShape, *, with_positions: bool,
     return g
 
 
+def graph_shardings(mesh, sds_tree) -> dict:
+    """Edge arrays use the whole mesh on big graphs; (pod, data) otherwise
+    (512-way shards of a 10k-edge graph are pure collective overhead)."""
+    e_len = sds_tree["edge_src"].shape[0]
+    edge_spec = shd.EDGE if e_len > 1_000_000 else shd.BATCH
+
+    def shard(sds):
+        lead = edge_spec if sds.shape[0] == e_len else shd.BATCH
+        spec = (lead,) + (None,) * (sds.ndim - 1)
+        return shd.named_sharding(mesh, spec, sds.shape)
+
+    return {k: shard(v) for k, v in sds_tree.items()}
+
+
 def _specialize(cfg, shape: GNNShape):
     """Adapt an arch config to a shape's feature/class/readout layout."""
     if isinstance(cfg, equiformer.EquiformerConfig):
@@ -101,7 +118,7 @@ def gnn_workload(cfg, shape: GNNShape, mesh,
     """The training step of a GNN arch or equiformer on ``shape``:
     ``value_and_grad`` of the model's loss and AdamW (no weight decay by
     default)."""
-    single_device(mesh)
+    no_mesh(mesh)
     opt_cfg = opt_cfg or optimizer.AdamWConfig(weight_decay=0.0)
     is_eq = isinstance(cfg, equiformer.EquiformerConfig)
     cfg = _specialize(cfg, shape)
@@ -122,6 +139,12 @@ def gnn_workload(cfg, shape: GNNShape, mesh,
         mu=p_sds, nu=p_sds)
     g_sds = graph_input_specs(shape, with_positions=is_eq,
                               edge_mult=edge_mult)
+    shardings = None
+    if mesh is not None:
+        p_shd = prm.tree_shardings(mesh, specs)
+        shardings = (p_shd, optimizer.AdamWState(
+            step=_replicated(mesh), mu=p_shd, nu=p_shd),
+            graph_shardings(mesh, g_sds))
 
     def step(params, opt_state, batch):
         loss, grads = grad_fn(params, batch, cfg, *extra)
@@ -144,6 +167,6 @@ def gnn_workload(cfg, shape: GNNShape, mesh,
                                 + 2 * shape.n_nodes * d * d)
     return Workload(
         name=f"{cfg.name}/{shape.name}", kind="train", fn=step,
-        in_sds=(p_sds, o_sds, g_sds),
+        in_sds=(p_sds, o_sds, g_sds), in_shardings=shardings,
         model_flops=3.0 * flops,   # fwd + bwd ~ 3x forward
     )

@@ -5,7 +5,7 @@ import torch
 
 from repro_torch.models.transformer import TransformerConfig
 
-from .common import LM_SHAPES, ArchDef
+from .common import LM_SHAPES, ArchDef, lm_workload
 
 CONFIG = TransformerConfig(
     name="moonshot-v1-16b-a3b",
@@ -49,5 +49,5 @@ SMOKE = TransformerConfig(
 
 ARCH = ArchDef(
     name="moonshot-v1-16b-a3b", family="lm", config=CONFIG,
-    smoke_config=SMOKE, shapes=LM_SHAPES,
+    smoke_config=SMOKE, shapes=LM_SHAPES, workload_fn=lm_workload,
 )

@@ -4,7 +4,7 @@ import torch
 
 from repro_torch.models.transformer import TransformerConfig
 
-from .common import LM_SHAPES, ArchDef
+from .common import LM_SHAPES, ArchDef, lm_workload
 
 CONFIG = TransformerConfig(
     name="qwen2-72b",
@@ -39,5 +39,5 @@ SMOKE = TransformerConfig(
 
 ARCH = ArchDef(
     name="qwen2-72b", family="lm", config=CONFIG, smoke_config=SMOKE,
-    shapes=LM_SHAPES,
+    shapes=LM_SHAPES, workload_fn=lm_workload,
 )

@@ -9,6 +9,9 @@ import functools
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from . import sharding as shd
 
 
 @functools.cache
@@ -62,10 +65,10 @@ def apply_rope(x, positions, *, theta: float = 10_000.0):
 def swiglu(x, w_gate, w_up, w_down):
     """SwiGLU MLP: silu(x @ w_gate) * (x @ w_up) @ w_down."""
     dtype = x.dtype
-    gate = x @ w_gate.to(dtype)
-    up = x @ w_up.to(dtype)
+    gate = x @ shd.gathered(w_gate).to(dtype)
+    up = x @ shd.gathered(w_up).to(dtype)
     hidden = F.silu(gate.to(torch.float32)).to(dtype) * up
-    return hidden @ w_down.to(dtype)
+    return hidden @ shd.gathered(w_down).to(dtype)
 
 
 def gelu_mlp(x, w_up, w_down):
@@ -80,8 +83,33 @@ def cross_entropy_loss(logits, targets, *, z_loss: float = 0.0):
     """Mean token cross-entropy at fp32 with optional z-loss."""
     logits = logits.to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    if isinstance(logits, DTensor):
+        gold = _gold_sharded(logits, targets)
+    else:
+        gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
     loss = logz - gold
     if z_loss:
         loss = loss + z_loss * torch.square(logz)
     return torch.mean(loss)
+
+
+def _gold_sharded(logits, targets):
+    """The target's logit of each row of DTensor ``logits``, whose
+    vocabulary may be sharded: each rank picks the targets that fall in
+    its slice (a partial sum over the vocabulary's shards)."""
+    last = logits.ndim - 1
+    v0 = shd.shard_offset(logits, last)
+    lp = tuple(logits.placements)
+    tp = tuple(p if isinstance(p, Shard) and p.dim != last else Replicate()
+               for p in lp)
+    out = tuple(Partial() if p == Shard(last) else q
+                for p, q in zip(lp, tp))
+
+    def local(lg, tg):
+        idx = tg.long() - v0
+        inside = (idx >= 0) & (idx < lg.shape[-1])
+        idx = idx.clamp(0, lg.shape[-1] - 1)
+        picked = torch.gather(lg, -1, idx[..., None])[..., 0]
+        return torch.where(inside, picked, 0.0)
+
+    return shd.local_call(local, out, (lp, tp), logits, targets)

@@ -8,12 +8,20 @@ and scattered back with the combine weights.  Capacity overflow drops
 tokens (GShard semantics).  Top-k breaks ties by the lower expert index,
 as ``jax.lax.top_k`` does (``torch.topk`` does not): it is the first ``k``
 of a stable descending sort.  Token groups run as a Python loop.
+
+On a mesh (a DTensor ``x``) the groups ride the batch axes, as in the JAX
+package's vmapped dispatch: each rank sorts, dispatches and combines its
+own groups (``sharding.local_call``; DTensor has no rule for the stable
+sort and index writes), the ``[G, E, C, D]`` buffers meet the ``model``
+axis on their expert dimension, and each rank runs its experts' MLPs on
+its groups.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from . import sharding as shd
 from .layers import swiglu
@@ -22,6 +30,8 @@ from .layers import swiglu
 def _top_k(probs, k: int):
     """``(values, indices)`` of the ``k`` largest along the last axis,
     equal values in index order."""
+    if isinstance(probs, DTensor):
+        return shd.rowwise(lambda p: _top_k(p, k), probs, n_out=2)
     values, indices = torch.sort(probs, dim=-1, descending=True, stable=True)
     return values[..., :k], indices[..., :k]
 
@@ -31,7 +41,7 @@ def router_topk(x, w_router, *, top_k: int, dtype=torch.float32):
 
     x: [T, D] -> (weights [T, k] f32, experts [T, k] int64)
     """
-    logits = x.to(dtype) @ w_router.to(dtype)
+    logits = x.to(dtype) @ shd.gathered(w_router).to(dtype)
     probs = torch.softmax(logits, dim=-1)
     top_p, top_e = _top_k(probs, top_k)
     top_p = top_p / torch.sum(top_p, dim=-1, keepdim=True)
@@ -46,7 +56,11 @@ def _dispatch_group(xs, es, *, n_experts: int, capacity: int, top_k: int):
     sk = flat_e.shape[0]
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
-    counts = torch.bincount(flat_e, minlength=n_experts)
+    # bincount by a scatter of ones: its output's size does not depend on
+    # the data, so fake tensors (the dry run) can trace it
+    counts = torch.zeros(n_experts, dtype=flat_e.dtype,
+                         device=xs.device).index_add_(
+        0, flat_e, torch.ones_like(flat_e))
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.arange(sk, device=xs.device) - starts[sorted_e]
     keep = rank < capacity
@@ -96,6 +110,10 @@ def moe_block(
     capacity = max(int(s * top_k * capacity_factor / e), 1)
 
     weights, experts = router_topk(x, w_router, top_k=top_k)   # [T, k]
+    if isinstance(x, DTensor):
+        return _moe_sharded(x, weights, experts, w_gate, w_up, w_down,
+                            groups=groups, capacity=capacity, top_k=top_k,
+                            mesh=mesh)
     out = []
     for g in range(groups):
         rows = slice(g * s, (g + 1) * s)
@@ -110,13 +128,65 @@ def moe_block(
     return shd.constrain(torch.cat(out, 0), mesh, shd.BATCH, None)
 
 
+def _moe_sharded(x, weights, experts, w_gate, w_up, w_down, *, groups: int,
+                 capacity: int, top_k: int, mesh):
+    """:func:`moe_block` on DTensors: ``[G, S, .]`` token groups on the
+    batch axes, each rank's groups dispatched and combined on the rank,
+    the expert MLPs on the ``[G, E, C, D]`` buffers' expert shards."""
+    t, d = x.shape
+    e = w_gate.shape[0]
+
+    def grouped(z):
+        return shd.constrain(shd.split_dim(z, 0, (groups, t // groups)),
+                             mesh, shd.BATCH, None, None)
+
+    xg, eg, wg = grouped(x), grouped(experts), grouped(weights)
+    gp = tuple(xg.placements)
+
+    def dispatch(xs, es):
+        parts = [_dispatch_group(a, b, n_experts=e, capacity=capacity,
+                                 top_k=top_k) for a, b in zip(xs, es)]
+        return tuple(torch.stack(z) for z in zip(*parts))
+
+    buf, slot, keep, order = shd.local_call(dispatch, (gp,) * 4, (gp, gp),
+                                            xg, eg)
+    buf = shd.constrain(buf, mesh, shd.BATCH, shd.MODEL, None, None)
+    bp = tuple(buf.placements)
+    # each rank's experts, gathered over the other axes (FSDP)
+    wp = tuple(Shard(0) if p == Shard(1) else Replicate() for p in bp)
+
+    def experts_mlp(bl, wg_, wu_, wd_):
+        return torch.stack([swiglu(b, wg_, wu_, wd_) for b in bl])
+
+    # each rank's groups use the gathered weights: partial gradients
+    wgrad = tuple(Partial() if p == Shard(0) else q
+                  for p, q in zip(bp, wp))
+    out_buf = shd.local_call(experts_mlp, bp, (bp, wp, wp, wp), buf,
+                             w_gate, w_up, w_down,
+                             grad_placements=(bp, wgrad, wgrad, wgrad))
+    out_buf = shd.constrain(out_buf, mesh, shd.BATCH, shd.MODEL, None, None)
+
+    def combine(ob, sl, kp, od, ws):
+        return torch.stack([_combine_group(*z, top_k=top_k)
+                            for z in zip(ob, sl, kp, od, ws)])
+
+    out = shd.local_call(combine, gp, (gp,) * 5, out_buf, slot, keep,
+                         order, wg)
+    return shd.constrain(shd.merge_dims(out, 0, 2), mesh, shd.BATCH, None)
+
+
 def aux_load_balance_loss(x, w_router, *, top_k: int):
     """Switch-style auxiliary load-balancing loss (fraction * probability)."""
-    logits = x.to(torch.float32) @ w_router.to(torch.float32)
+    logits = x.to(torch.float32) @ shd.gathered(w_router).to(
+        torch.float32)
     probs = torch.softmax(logits, dim=-1)
     e = probs.shape[-1]
     _, top_e = _top_k(probs, top_k)
-    onehot = F.one_hot(top_e, e).to(torch.float32).sum(dim=1)
+    if isinstance(top_e, DTensor):
+        onehot = shd.rowwise(lambda z: F.one_hot(z, e), top_e)
+    else:
+        onehot = F.one_hot(top_e, e)
+    onehot = onehot.to(torch.float32).sum(dim=1)
     frac_tokens = torch.mean(onehot, dim=0)
     frac_probs = torch.mean(probs, dim=0)
     return e * torch.sum(frac_tokens * frac_probs)

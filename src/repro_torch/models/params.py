@@ -4,9 +4,12 @@ Parameters are plain nested dicts of tensors.  Each model declares a
 matching tree of :class:`ParamSpec`; :func:`tree_init` makes the tensors
 from it with an explicit :class:`torch.Generator`, :func:`tree_sds` makes
 shape-and-dtype stand-ins (meta tensors, the JAX package's
-``ShapeDtypeStruct``s), :func:`count_params` counts them.  The init rules are the JAX package's (``normal`` with a
-fan-in scale, ``zeros``, ``ones``, ``embed``); the numbers differ, as two
-generators do.
+``ShapeDtypeStruct``s), :func:`tree_shardings` resolves each leaf's
+logical spec on a mesh and :func:`place_tree` lays a tree of tensors out
+by those shardings as DTensors, :func:`count_params` counts them.  The
+init rules are the JAX package's (``normal`` with a fan-in scale,
+``zeros``, ``ones``, ``embed``); the numbers differ, as two generators
+do.
 """
 
 from __future__ import annotations
@@ -43,6 +46,35 @@ def tree_sds(specs):
     if is_spec(specs):
         return torch.empty(specs.shape, dtype=specs.dtype, device="meta")
     return {k: tree_sds(specs[k]) for k in sorted(specs)}
+
+
+def tree_shardings(mesh, specs):
+    """A tree of :class:`~.sharding.NamedSharding` shaped like ``specs``
+    (``None`` without a mesh)."""
+    from . import sharding as shd
+
+    if mesh is None:
+        return None
+    if is_spec(specs):
+        return shd.named_sharding(mesh, specs.logical, specs.shape)
+    return {k: tree_shardings(mesh, specs[k]) for k in sorted(specs)}
+
+
+def place_tree(tree, shardings):
+    """Each leaf of ``tree`` (real or fake tensors, global shapes) as a
+    DTensor laid out by the leaf of ``shardings`` of the same path
+    (``distribute_tensor`` per leaf, in flatten order); a ``None``
+    sharding, or a mesh of one device, leaves the tree as it is."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.training.tree import leaves, unflatten
+
+    flat = leaves(shardings)
+    if not flat or flat[0].mesh.size() == 1:
+        return tree
+    return unflatten(tree, [
+        distribute_tensor(x, s.mesh, s.placements)
+        for x, s in zip(leaves(tree), flat, strict=True)])
 
 
 def _fan_in(shape) -> int:

@@ -34,6 +34,7 @@ import math
 from typing import Any
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils import checkpoint as ckpt
 
 from . import attention, moe as moe_lib, sharding as shd
@@ -164,16 +165,38 @@ def _rope_theta(cfg: TransformerConfig, is_local: bool) -> float:
     return cfg.rope_theta
 
 
-def _rope_tables(cfg: TransformerConfig, positions) -> dict:
+def _rope_tables(cfg: TransformerConfig, positions, mesh=None) -> dict:
     """``{theta: (sin, cos)}`` for every RoPE theta the layers use (local
-    vs global layers), made once per call."""
+    vs global layers), made once per call (replicated on a mesh)."""
     thetas = {_rope_theta(cfg, _is_local_layer(cfg, i))
               for i in range(cfg.n_layers)}
-    return {t: rope_angles(positions, cfg.d_head, t) for t in thetas}
+    return {t: tuple(shd.replicate(x, mesh)
+                     for x in rope_angles(positions, cfg.d_head, t))
+            for t in thetas}
+
+
+def _lookup_sharded(table, tokens):
+    """``table[tokens]`` on DTensors: the table gathered over its
+    vocabulary shards, and each rank looking up its own tokens (DTensor's
+    rules for a lookup into a sharded table give a partial sum that can
+    be reduced once, and none for tokens split over two mesh axes)."""
+    mesh = table.device_mesh
+    tp = tuple(p if isinstance(p, Shard) else Replicate()
+               for p in tokens.placements)
+    rep = (Replicate(),) * mesh.ndim
+    # each rank's tokens reach other rows of the table: partial gradients
+    grad = tuple(Partial() if isinstance(p, Shard) else p for p in tp)
+    return shd.local_call(lambda t, ids: t[ids], tp, (rep, tp), table,
+                          tokens, grad_placements=(grad, tp))
 
 
 def _embed(params, tokens, cfg: TransformerConfig):
-    x = params["embed"][tokens].to(cfg.dtype)
+    table = params["embed"]
+    if isinstance(table, DTensor):
+        x = _lookup_sharded(table, tokens)
+    else:
+        x = table[tokens]
+    x = x.to(cfg.dtype)
     if cfg.embed_scale:
         x = x * scalar_in(math.sqrt(cfg.d_model), cfg.dtype)
     return x
@@ -181,8 +204,9 @@ def _embed(params, tokens, cfg: TransformerConfig):
 
 def _project(h, w, bias=None):
     """``einsum("bsd,dhk->bshk", h, w)`` (+ bias), in ``h``'s dtype."""
-    out = (h @ w.to(h.dtype).reshape(w.shape[0], -1)).reshape(
-        *h.shape[:-1], *w.shape[1:])
+    out = shd.split_dim(h @ shd.merge_dims(shd.gathered(w).to(h.dtype), 1,
+                                       w.ndim - 1),
+                        h.ndim - 1, w.shape[1:])
     return out if bias is None else out + bias.to(h.dtype)
 
 
@@ -198,8 +222,8 @@ def _qkv(cfg: TransformerConfig, h, lp, rope, is_local):
 
 def _attn_out(out, lp, dtype):
     """``einsum("bshk,hkd->bsd", out, wo)``."""
-    wo = lp["wo"].to(dtype)
-    return out.reshape(*out.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
+    wo = shd.gathered(lp["wo"]).to(dtype)
+    return shd.merge_dims(out, 2, 2) @ shd.merge_dims(wo, 0, 2)
 
 
 def _mlp(cfg: TransformerConfig, mesh, h, lp):
@@ -210,12 +234,12 @@ def _mlp(cfg: TransformerConfig, mesh, h, lp):
         out = swiglu(h, lp["wg"], lp["wu"], lp["wd"])
     if cfg.moe:
         b, s, d = h.shape
-        moe_out = moe_lib.moe_block(
-            h.reshape(b * s, d), w_router=lp["w_router"],
+        moe_out = shd.split_dim(moe_lib.moe_block(
+            shd.merge_dims(h, 0, 2), w_router=lp["w_router"],
             w_gate=lp["we_gate"], w_up=lp["we_up"], w_down=lp["we_down"],
             top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
             mesh=mesh,
-        ).reshape(b, s, d)
+        ), 0, (b, s))
         out = moe_out if out is None else out + moe_out
         if cfg.n_shared_experts:
             out = out + swiglu(h, lp["ws_gate"], lp["ws_up"], lp["ws_down"])
@@ -240,7 +264,8 @@ def _layer_fwd(cfg: TransformerConfig, mesh, x, lp, idx: int, positions,
     h = rms_norm(x, lp["ln2"])
     x = x + shd.constrain(_mlp(cfg, mesh, h, lp), mesh, shd.BATCH, None,
                           None)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = shd.replicate(torch.zeros((), dtype=torch.float32,
+                                    device=x.device), mesh)
     if cfg.moe:
         aux = moe_lib.aux_load_balance_loss(
             h.reshape(-1, h.shape[-1]), lp["w_router"], top_k=cfg.top_k)
@@ -250,7 +275,7 @@ def _layer_fwd(cfg: TransformerConfig, mesh, x, lp, idx: int, positions,
 def _logits(params, x, cfg: TransformerConfig):
     x = rms_norm(x, params["final_norm"])
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return x @ head.to(cfg.dtype)
+    return x @ shd.gathered(head).to(cfg.dtype)
 
 
 _SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -296,7 +321,7 @@ def forward(params, tokens, cfg: TransformerConfig, mesh=None):
     x = shd.constrain(_embed(params, tokens, cfg), mesh, shd.BATCH, None,
                       None)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    rope = _rope_tables(cfg, positions[None, :])
+    rope = _rope_tables(cfg, positions[None, :], mesh)
     slices = {k: w.unbind(0) for k, w in params["layers"].items()}
     auxes = []
     for i in range(cfg.n_layers):
@@ -340,6 +365,23 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
             for k, s in cache_specs(cfg, batch, max_len).items()}
 
 
+def _write_slot(cache, new, slot: int) -> None:
+    """``cache[:, slot] = new[:, 0]`` in place (cache ``[B, T, KV, dh]``,
+    new ``[B, 1, KV, dh]``).  On a DTensor cache sharded along its
+    sequence, the rank whose slice holds ``slot`` writes it into its
+    shard; ``new`` is laid out like the cache first."""
+    if not isinstance(cache, DTensor):
+        cache[:, slot] = new[:, 0]
+        return
+    place = tuple(Replicate() if p == Shard(1) else p
+                  for p in cache.placements)
+    new = new.redistribute(cache.device_mesh, place).to_local()
+    local = cache.to_local()
+    at = slot - shd.shard_offset(cache, 1)
+    if 0 <= at < local.shape[1]:
+        local[:, at] = new[:, 0]
+
+
 def serve_step(params, cache, tokens, cache_len, cfg: TransformerConfig,
                mesh=None):
     """Decode one token. tokens [B, 1]; cache_len: valid entries so far.
@@ -349,7 +391,7 @@ def serve_step(params, cache, tokens, cache_len, cfg: TransformerConfig,
     cache_len = int(cache_len)
     x = _embed(params, tokens, cfg)
     rope = _rope_tables(cfg, torch.full((1, 1), cache_len,
-                                        device=tokens.device))
+                                        device=tokens.device), mesh)
     t_max = cache["k"].shape[2]
     # dynamic_update_slice clamps the start into the cache
     slot = min(max(cache_len, 0), t_max - 1)
@@ -364,8 +406,8 @@ def serve_step(params, cache, tokens, cache_len, cfg: TransformerConfig,
         h = rms_norm(x, lp["ln1"])
         q, k, v = _qkv(cfg, h, lp, rope, is_local)
         k_cache, v_cache = cache["k"][i], cache["v"][i]
-        k_cache[:, slot] = k[:, 0]
-        v_cache[:, slot] = v[:, 0]
+        _write_slot(k_cache, k, slot)
+        _write_slot(v_cache, v, slot)
         out = attention.attend_decode(
             q, k_cache, v_cache, cache_len=cache_len + 1,
             window=cfg.window, is_local=is_local, scale=cfg.d_head ** -0.5,

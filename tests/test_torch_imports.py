@@ -89,3 +89,21 @@ def test_training_modules_are_port_modules():
     names = {".".join(os.path.relpath(p, os.path.dirname(PORT))[:-3]
                       .split(os.sep)) for p in _port_files()}
     assert set(TRAINING_MODULES) <= names
+
+
+def test_slice_10_modules_are_probed_and_start_no_world():
+    """The dry run's modules lie under the probed package, and importing
+    them makes no process group (the fake world is made only by the dry
+    run's ``run_cell``)."""
+    for rel in ("launch/dryrun.py", "launch/analysis.py", "launch/mesh.py",
+                "configs/ptmt.py", "models/sharding.py"):
+        assert os.path.exists(os.path.join(PORT, rel)), rel
+    code = ("import torch.distributed as dist\n"
+            "import repro_torch.launch.dryrun, repro_torch.launch.mesh\n"
+            "import repro_torch.configs.ptmt\n"
+            "print('WORLD', dist.is_initialized())")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=env, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert "WORLD False" in out.stdout

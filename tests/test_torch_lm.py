@@ -410,8 +410,9 @@ def test_constrain_is_the_identity_on_one_device(tmp_path):
     assert sharding.constrain(x, None, sharding.BATCH, None) is x
     with gloo_mesh(tmp_path) as mesh:
         assert sharding.constrain(x, mesh, sharding.BATCH, None) is x
+    # on a larger mesh a plain tensor has no layout to redistribute
     four = types.SimpleNamespace(size=lambda: 4)
-    with pytest.raises(NotImplementedError, match="DTensor"):
+    with pytest.raises(TypeError, match="DTensor"):
         sharding.constrain(x, four, sharding.BATCH, None)
 
 

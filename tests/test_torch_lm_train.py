@@ -243,7 +243,7 @@ def test_workload_stand_ins_and_flops_match_jax():
             w = common.lm_train_workload(arch.config, shape, None)
             assert (w.name, w.kind) == (jw.name, jw.kind)
             assert w.model_flops == jw.model_flops
-            assert w.in_shardings is None and w.out_shardings is None
+            assert w.in_shardings is None
             got = leaves(w.in_sds)
             want = jax.tree.leaves(jw.in_sds)
             assert [tuple(x.shape) for x in got] == [
@@ -251,15 +251,25 @@ def test_workload_stand_ins_and_flops_match_jax():
             assert [str(x.dtype).split(".")[-1] for x in got] == [
                 str(x.dtype) for x in want]
             assert {x.device.type for x in got} == {"meta"}
-    four = types.SimpleNamespace(size=lambda: 4)
-    one = types.SimpleNamespace(size=lambda: 1)
-    cfg = get_arch("granite-8b").smoke_config
+    # a workload on a mesh carries its shardings; the microbatch count
+    # follows the batch's shards, as in the JAX package
+    def standin(n_data):
+        return types.SimpleNamespace(
+            size=lambda: 2 * n_data, mesh_dim_names=("data", "model"),
+            shape=(n_data, 2))
+
+    cfg = get_arch("granite-8b").config
     shape = common.LM_SHAPES[0]
-    assert common.lm_train_workload(cfg, shape, one).in_shardings is None
-    with pytest.raises(NotImplementedError, match="sharding on DTensor"):
-        common.lm_train_workload(cfg, shape, four)
-    with pytest.raises(NotImplementedError, match="sharding on DTensor"):
-        common.choose_microbatches(cfg, shape, four)
+    for n_data in (1, 2, 16):
+        mesh = standin(n_data)
+        jmesh = types.SimpleNamespace(shape={"data": n_data, "model": 2})
+        w = common.lm_train_workload(cfg, shape, mesh)
+        assert [s.spec for s in leaves(w.in_shardings[2])] == [
+            ("data", None)] * 2
+        assert common.choose_microbatches(cfg, shape, mesh) == \
+            jax_common.choose_microbatches(
+                jax_get_arch("granite-8b").config, jax_common.LM_SHAPES[0],
+                jmesh)
 
 
 def test_tree_sds_matches_jax():

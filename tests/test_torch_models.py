@@ -333,16 +333,14 @@ def test_get_arch_for_ported_and_unported_names():
     assert configs.arch_names() == [
         "arctic-480b", "dcn-v2", "equiformer-v2", "gat-cora", "gatedgcn",
         "gemma3-1b", "gin-tu", "granite-8b", "moonshot-v1-16b-a3b",
-        "qwen2-72b"]
+        "ptmt-mining", "qwen2-72b"]
     assert configs.get_arch("equiformer-v2").name == "equiformer-v2"
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        configs.get_arch("ptmt-mining")
+    assert configs.get_arch("ptmt-mining").family == "mining"
     with pytest.raises(KeyError, match="unknown arch"):
         configs.get_arch("resnet-50")
     from repro.configs import arch_names as jax_arch_names
 
-    assert sorted([*configs.arch_names(), *configs.UNPORTED]) == \
-        jax_arch_names()
+    assert configs.arch_names() == jax_arch_names()
 
 
 def test_synthetic_recsys_batch_matches_jax():
