@@ -303,21 +303,41 @@ TRAIN_REMAT_LAYERS = 2
 # zone is a window of MINE_FILL..1 x e_cap consecutive edges of the
 # full-size graph from a seeded start, its valid prefix, and a seeded
 # sign of +-1.  (b) these dry-run cells through
-# dryrun.run_cell, one subprocess each, DRY_JOBS at once.  (c) these cells
-# at DRY_LAYERS layers run for real as rank 0 of the single mesh on a fake
-# world: FLOPs equal to the dry run's, the card's peak within DRY_MEM x
-# the dry run's per-rank peak.
+# dryrun.run_cell, one subprocess each, DRY_JOBS at once; DRY_CUT cells at
+# DRY_CUT_LAYERS layers (their whole depth traces for minutes; the full
+# set runs once through --orchestrate, PERF.md).  (c) these cells at their
+# given layers (None: whole) run for real as rank 0 of the single mesh on
+# a fake world: FLOPs equal to the dry run's, the card's peak within
+# DRY_MEM x the dry run's per-rank peak; the GNN and DCN-v2 cells through
+# B4, B4's backward, B5 and B5's backward, whose launches count in the
+# kernels line.
 MINE_SHAPES = (("mine_1m", True), ("mine_xl", False))
 MINE_REPS, MINE_FILL, MINE_SEED = 3, 0.25, 17
+GRAPH_ARCHS = ("gin-tu", "gat-cora", "gatedgcn", "equiformer-v2")
+GRAPH_SHAPES = ("full_graph_sm", "minibatch_lg", "ogb_products", "molecule")
+DRY_CUT = (("equiformer-v2", "ogb_products", "single"),)
+DRY_CUT_LAYERS = 1
 DRY_CELLS = (("granite-8b", "train_4k", "single"),
              ("qwen2-72b", "decode_32k", "single"),
              ("arctic-480b", "long_500k", "multi"),
              ("moonshot-v1-16b-a3b", "train_4k", "multi"),
              *(("ptmt-mining", s, "single") for s in (
-                 "mine_1m", "mine_dense", "mine_wide", "mine_xl")))
+                 "mine_1m", "mine_dense", "mine_wide", "mine_xl")),
+             *((a, s, "single") for a in GRAPH_ARCHS for s in GRAPH_SHAPES
+               if (a, s, "single") not in DRY_CUT),
+             *(("dcn-v2", s, "single") for s in (
+                 "train_batch", "serve_p99", "serve_bulk",
+                 "retrieval_cand")))
 DRY_JOBS = 7
-DRY_CHECK = (("granite-8b", "decode_32k"), ("granite-8b", "train_4k"))
-DRY_LAYERS, DRY_MEM = 2, (0.5, 2.0)
+DRY_CHECK = (("granite-8b", "decode_32k", 2), ("granite-8b", "train_4k", 2),
+             ("gin-tu", "minibatch_lg", None),
+             ("gat-cora", "full_graph_sm", None),
+             ("equiformer-v2", "molecule", None),
+             ("dcn-v2", "train_batch", None))
+DRY_MEM = (0.5, 2.0)
+#: the kernels (c) must launch, each on some cell
+DRY_KERNELS = ("segment_spmm", "segment_spmm_backward",
+               "embedding_bag_fields", "embedding_bag_fields_backward")
 
 
 def log(msg: str) -> None:
@@ -2184,7 +2204,7 @@ def train_with_resume(label, step_fn, params, opt_state, batches, ckdir,
 def gnn_training(bound):
     """gin-tu, gat-cora and gatedgcn at full width on ``minibatch_lg``:
     the first step's loss and gradients on the card against the CPU's,
-    every aggregation's gradient through B4's autograd Function, then 5
+    every aggregation's gradient through B4's custom op's autograd, then 5
     AdamW steps through ``train_loop.run`` with a checkpoint and a
     resume; gin-tu's resumed run against an uninterrupted one.  Returns
     B4's forward and backward launches in the counted runs, its largest
@@ -2223,7 +2243,7 @@ def gnn_training(bound):
         n_aggs = len(calls["edge_grad"]) + len(calls["row_grad"])
         if n_aggs != per_forward:
             raise SystemExit(f"{name}: {n_aggs} aggregation gradients "
-                             f"through B4's Function, expected "
+                             f"through B4's autograd, expected "
                              f"{per_forward}")
         loss_c, grads_c = grad_fn(tree_to(p, "cpu"), g_cpu, cfg)
         hold(f"{name} loss on the card vs the CPU", loss.cpu(), loss_c,
@@ -2238,7 +2258,7 @@ def gnn_training(bound):
         log(f"[train] {name} minibatch_lg: first step's loss "
             f"{float(loss):.6f} (CPU {float(loss_c):.6f}); gradients on "
             f"the card against the CPU's: {summary}{yardstick}; {n_aggs} "
-            f"aggregation gradients through B4's Function "
+            f"aggregation gradients through B4's autograd "
             f"({len(calls['row_grad'])} on the transposed plan)")
         del grads, grads_c
 
@@ -3090,22 +3110,23 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 from repro_torch.launch import dryrun
 out = []
-for arch, shape in {cells!r}:
-    real = dryrun.run_real(arch, shape, n_layers={layers}, device={device!r})
+for arch, shape, layers in {cells!r}:
+    real = dryrun.run_real(arch, shape, n_layers=layers, device={device!r})
     torch.cuda.empty_cache()
     dry = dryrun.run_cell(arch, shape, "single", {out!r},
-                          n_layers={layers}, tag="check")
-    out.append([arch, shape, real, dry])
+                          n_layers=layers, tag="check")
+    out.append([arch, shape, layers, real, dry])
 print("RESULT", json.dumps(out))
 """
 
 
-def dryrun_phase() -> None:
+def dryrun_phase() -> dict:
     """Phase 17 (b) and (c), in subprocesses (the fake world of 256 or
     512 ranks must be its process's default group): (b) DRY_CELLS through
-    ``dryrun.run_cell``, every record ``"ok"``, and ``report``'s table;
-    (c) DRY_CHECK at DRY_LAYERS layers run for real on the card against
-    the dry run."""
+    ``dryrun.run_cell``, DRY_CUT at DRY_CUT_LAYERS layers, every record
+    ``"ok"``, and ``report``'s table; (c) DRY_CHECK run for real on the
+    card against the dry run.  Returns (c)'s kernel launches, summed over
+    its cells."""
     import threading
 
     from repro_torch.launch import dryrun
@@ -3114,61 +3135,92 @@ def dryrun_phase() -> None:
     shutil.rmtree(out, ignore_errors=True)
     failures = []
     t0 = time.perf_counter()
-    sweep = threading.Thread(target=lambda: failures.extend(
-        dryrun.orchestrate(out, cells=list(DRY_CELLS), jobs=DRY_JOBS,
-                           force=True, timeout=900)))
-    sweep.start()
-    code = _DRY_VS_CARD.format(cells=DRY_CHECK, layers=DRY_LAYERS,
+
+    # the cut cells beside the others from the start, one job of the
+    # DRY_JOBS each: they trace longest
+    threads = [threading.Thread(target=lambda: failures.extend(
+        dryrun.orchestrate(out, cells=list(DRY_CELLS),
+                           jobs=DRY_JOBS - len(DRY_CUT), force=True,
+                           timeout=900))),
+               threading.Thread(target=lambda: failures.extend(
+                   dryrun.orchestrate(out, cells=list(DRY_CUT),
+                                      jobs=len(DRY_CUT), force=True,
+                                      timeout=900, n_layers=DRY_CUT_LAYERS,
+                                      tag=f"l{DRY_CUT_LAYERS}")))]
+    for thread in threads:
+        thread.start()
+    code = _DRY_VS_CARD.format(cells=DRY_CHECK,
                                out=os.path.join(out, "check"),
                                device=DEVICE)
     proc = subprocess.run([sys.executable, "-c", code], cwd=HERE,
                           capture_output=True, text=True, timeout=900)
     check_s = time.perf_counter() - t0
-    sweep.join()
-    log(f"[dry17] (b) {len(DRY_CELLS)} cells, {DRY_JOBS} at once, "
+    for thread in threads:
+        thread.join()
+    n_cells = len(DRY_CELLS) + len(DRY_CUT)
+    log(f"[dry17] (b) {n_cells} cells, {DRY_JOBS} at once, "
         f"{time.perf_counter() - t0:.1f}s; (c) {check_s:.1f}s")
     dryrun.report(out)
     if failures:
         raise SystemExit(f"dry run: cells failed: {failures}")
-    for a, s, m in DRY_CELLS:
-        with open(dryrun.cell_path(out, a, s, m)) as f:
+    for (a, s, m), tag in [(c, "") for c in DRY_CELLS] + [
+            (c, f"l{DRY_CUT_LAYERS}") for c in DRY_CUT]:
+        with open(dryrun.cell_path(out, a, s, m, tag)) as f:
             rec = json.load(f)
-        log(f"[dry17] {a}/{s}/{m}: {rec['compile_s']:.1f}s traced, "
+        coll = ", ".join(f"{k} {v / 1e9:.4g} GB" for k, v in
+                         rec["collective_bytes_by_kind"].items() if v)
+        log(f"[dry17] {a}/{s}/{m}{' at n_layers=' + str(rec['n_layers'])
+                                   if tag else ''}: "
+            f"{rec['compile_s']:.1f}s traced, "
             f"{rec['flops_per_chip']:.4g} FLOP and "
             f"{rec['collective_bytes_per_chip']:.4g} collective bytes per "
-            f"rank, peak {rec['peak_bytes_per_chip'] / 1e9:.3f} GB "
+            f"rank ({coll or 'none'}), peak "
+            f"{rec['peak_bytes_per_chip'] / 1e9:.3f} GB "
             f"({'fits' if rec['fits_h100'] else 'does not fit'} 80 GB), "
             f"dominant {rec['dominant']}")
     if proc.returncode != 0 or "RESULT " not in proc.stdout:
         raise SystemExit("dry run vs the card failed:\n"
                          + proc.stderr[-3000:])
     rows = json.loads(proc.stdout.split("RESULT ", 1)[1])
-    for arch, shape, real, dry in rows:
+    launches = dict.fromkeys(DRY_KERNELS, 0)
+    for arch, shape, layers, real, dry in rows:
         ratio = real["peak_bytes"] / dry["peak_bytes_per_chip"]
-        log(f"[dry17] (c) {arch}/{shape} at {DRY_LAYERS} layers as rank 0 "
-            f"of 256 on the card: FLOP {real['flops']} (dry run "
-            f"{dry['flops_per_chip']:.0f}), max_memory_allocated "
-            f"{real['peak_bytes'] / 1e9:.3f} GB = {ratio:.3f} x the dry "
+        depth = "whole" if layers is None else f"{layers} layers"
+        log(f"[dry17] (c) {arch}/{shape} ({depth}) as rank 0 of 256 on the "
+            f"card: FLOP {real['flops']} (dry run "
+            f"{dry['flops_per_chip']:.0f}), the step's peak "
+            f"{real['peak_bytes'] / 1e9:.3f} GB (max_memory_allocated "
+            f"{(real['peak_bytes'] + real['held_bytes']) / 1e9:.3f} GB less "
+            f"{real['held_bytes'] / 1e9:.3f} GB held before it apart from "
+            f"its arguments) = {ratio:.3f} x the dry "
             f"run's peak {dry['peak_bytes_per_chip'] / 1e9:.3f} GB, "
-            f"{real['ms']:.1f} ms per step (host-bound: DTensor dispatch)")
+            f"{real['ms']:.1f} ms per step (host-bound: DTensor dispatch), "
+            f"launches {real['launches'] or 'none'}")
         if real["flops"] != dry["flops_per_chip"]:
             raise SystemExit(f"{arch}/{shape}: the card's FLOPs "
                              f"{real['flops']} != the dry run's")
         if not DRY_MEM[0] <= ratio <= DRY_MEM[1]:
             raise SystemExit(f"{arch}/{shape}: peak ratio {ratio:.3f} "
                              f"outside {DRY_MEM}")
+        for k, n in real["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    missing = [k for k in DRY_KERNELS if not launches[k]]
+    if missing:
+        raise SystemExit(f"(c) launched no {missing} on its cells")
+    return launches
 
 
-def shard_dry_phase(graph) -> int:
+def shard_dry_phase(graph) -> tuple[int, dict]:
     """Phase 17: every launch count at 0 before; (a) the mining step, (b)
-    and (c) the dry run; after it B3's count must equal (a)'s steps and
-    every other count 0.  Returns B3's launches."""
+    and (c) the dry run; after it B3's count in this process must equal
+    (a)'s steps and every other count 0 ((c) runs in a subprocess).
+    Returns B3's launches and (c)'s."""
     for ops in kernel_ops():
         ops.reset_launches()
     t0 = time.perf_counter()
     launches = mining_step_phase(graph)
     log(f"[mine17] (a) {time.perf_counter() - t0:.1f}s")
-    dryrun_phase()
+    real_launches = dryrun_phase()
     counts = {k: v for ops in kernel_ops()
               for k, v in (*ops.launches.items(),
                            *getattr(ops, "plans", {}).items())}
@@ -3179,8 +3231,69 @@ def shard_dry_phase(graph) -> int:
                          f"{want}), others {counts}")
     log(f"[shard17] B3 launched {launches} times as predicted "
         f"({len(MINE_SHAPES)} shapes x {MINE_REPS + 1} steps), every other "
-        "count 0")
-    return launches
+        f"count 0; (c) on the card: {real_launches}")
+    return launches, real_launches
+
+
+_ZOO_PHASES = """
+import sys, time
+sys.path.insert(0, "src")
+sys.path.insert(0, ".")
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+import chip_smoke as cs
+
+props = torch.cuda.get_device_properties(0)
+int_rate = (props.multi_processor_count * 64
+            * float(cs.nvidia_smi("clocks.max.sm").split()[0]) * 1e6)
+
+
+def bound(name, n_bytes, n_ops, ms, rate=int_rate, unit="int"):
+    bytes_ms = n_bytes / cs.HBM_RATE * 1e3
+    ops_ms = n_ops / rate * 1e3
+    b_ms = max(bytes_ms, ops_ms)
+    by = "bytes" if bytes_ms >= ops_ms else "operations"
+    cs.log(f"[bound] {{name}}: bound {{b_ms:.4f}} ms by {{by}}; kernel "
+           f"{{ms:.4f}} ms, at {{b_ms / ms:.1%}} of its bound")
+    return b_ms, by
+
+
+cs.log(cs.nvidia_smi("name,power.limit"))
+for name in {phases!r}:
+    t0 = time.perf_counter()
+    getattr(cs, name)(bound)
+    cs.log(f"[zoo-ab] {{name}} {{time.perf_counter() - t0:.1f}}s")
+"""
+#: phases 9, 10 and 14 as functions of chip_smoke.py, each taking the
+#: bound function
+ZOO_PHASES = ("gnn_minibatch", "gnn_ogb_products", "dcn_serving",
+              "gnn_training", "dcn_training")
+
+
+def zoo_ab(parent: str, order=("parent", "change", "change", "parent"),
+           out: str = "chiprun_out") -> None:
+    """Phases 9, 10 and 14 (ZOO_PHASES) of ``parent``'s chip_smoke.py (an
+    unpacked checkout of an earlier commit) and of this one, in ``order``,
+    each run in a process of its own that builds its tree's kernels; each
+    run's log is written under ``out``.  For the times of two versions of
+    the one-card model-zoo paths on the same card in one call:
+    ``python3 -c "import chip_smoke as cs; cs.zoo_ab('build/parent')"``."""
+    os.makedirs(os.path.join(HERE, out), exist_ok=True)
+    code = _ZOO_PHASES.format(phases=ZOO_PHASES)
+    for i, which in enumerate(order):
+        cwd = os.path.abspath(parent) if which == "parent" else HERE
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code], cwd=cwd,
+                              capture_output=True, text=True, timeout=1500)
+        path = os.path.join(HERE, out, f"zoo_ab_{i}_{which}.log")
+        with open(path, "w") as f:
+            f.write(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
+        log(f"[zoo-ab] run {i} ({which}): rc {proc.returncode}, "
+            f"{time.perf_counter() - t0:.1f}s, log {path}")
+        if proc.returncode != 0:
+            raise SystemExit(f"zoo_ab run {i} ({which}) failed:\n"
+                             + proc.stderr[-3000:])
 
 
 def main() -> int:
@@ -3601,7 +3714,15 @@ def main() -> int:
 
     # -- 17. sharding and the dry run ------------------------------------
     t_phase = time.perf_counter()
-    dense_launches += shard_dry_phase(graph)
+    n, dry_launches = shard_dry_phase(graph)
+    dense_launches += n
+    spmm_launches += dry_launches["segment_spmm"]
+    train_spmm["segment_spmm_backward"] += \
+        dry_launches["segment_spmm_backward"]
+    bag_launches["embedding_bag_fields"] += \
+        dry_launches["embedding_bag_fields"]
+    train_bag["embedding_bag_fields_backward"] += \
+        dry_launches["embedding_bag_fields_backward"]
     log(f"[shard17] phase {time.perf_counter() - t_phase:.1f}s")
 
     # -- 18. kernels ----------------------------------------------------

@@ -21,11 +21,6 @@ from repro_torch.models import params as prm, sharding as shd, transformer
 from repro_torch.training import optimizer
 from repro_torch.training.tree import leaves, tree_map, value_and_grad
 
-#: the ROADMAP item that puts the GNN, equiformer and DCN-v2 cells on a mesh
-MESH_TODO = ("ROADMAP queue A: GNN, equiformer and DCN-v2 on a mesh: "
-             "B4/B5 as custom ops")
-
-
 @dataclasses.dataclass
 class Workload:
     """One dry-run cell: ``fn(*args)`` with arg stand-ins and shardings."""
@@ -44,16 +39,6 @@ class Workload:
             return tuple(args)
         return tuple(prm.place_tree(a, s)
                      for a, s in zip(args, self.in_shardings, strict=True))
-
-
-def no_mesh(mesh) -> None:
-    """Raises on a mesh of more than one device: the GNN, equiformer and
-    DCN-v2 steps run their B4/B5 kernels through ctypes, which neither
-    fake tensors nor DTensor can trace."""
-    if shd.on_mesh(mesh):
-        raise NotImplementedError(
-            f"a GNN, equiformer or DCN-v2 workload on a {mesh.size()}-device "
-            f"mesh is not ported yet: {MESH_TODO}")
 
 
 def _replicated(mesh):

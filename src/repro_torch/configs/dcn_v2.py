@@ -3,8 +3,9 @@
 13 dense + 26 sparse fields, embed_dim=16, 3 cross layers, MLP 1024-1024-512.
 Shapes: train_batch 65k, serve_p99 512, serve_bulk 262k, retrieval_cand 1x1M.
 
-The workload runs on no mesh or a one-device mesh; a larger mesh raises
-(``common.MESH_TODO``).
+The workloads run on no mesh or on any mesh: the model takes the mesh,
+and its embedding bags run the embedding-bag kernel's custom op (B5)
+vocab-parallel there, each rank on its table shards.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from repro_torch.models import params as prm, recsys, sharding as shd
 from repro_torch.training import optimizer
 from repro_torch.training.tree import value_and_grad
 
-from .common import ArchDef, Workload, _replicated, _sds, no_mesh
+from .common import ArchDef, Workload, _replicated, _sds
 
 CONFIG = recsys.DCNConfig(name="dcn-v2")
 
@@ -72,7 +73,6 @@ def _batch_specs(cfg, b, mesh, with_labels):
 def recsys_workload(cfg, shape: RecsysShape, mesh,
                     opt_cfg: optimizer.AdamWConfig | None = None) -> Workload:
     """DCN-v2's training step, forward or retrieval step on ``shape``."""
-    no_mesh(mesh)
     specs = recsys.dcn_param_specs(cfg)
     p_sds = prm.tree_sds(specs)
     p_shd = None if mesh is None else prm.tree_shardings(mesh, specs)
@@ -97,7 +97,7 @@ def recsys_workload(cfg, shape: RecsysShape, mesh,
                 step=_replicated(mesh), mu=p_shd, nu=p_shd), b_shd)
 
         def step(params, opt_state, batch):
-            loss, grads = grad_fn(params, batch, cfg)
+            loss, grads = grad_fn(params, batch, cfg, mesh)
             new_p, new_o, metrics = optimizer.apply_updates(
                 opt_cfg, params, grads, opt_state)
             metrics["loss"] = loss
@@ -112,7 +112,7 @@ def recsys_workload(cfg, shape: RecsysShape, mesh,
     b_sds, b_shd = _batch_specs(cfg, shape.batch, mesh, False)
     if shape.kind == "serve":
         def serve(params, batch):
-            return recsys.forward(params, batch, cfg)
+            return recsys.forward(params, batch, cfg, mesh)
 
         return Workload(
             name=name, kind="serve", fn=serve, in_sds=(p_sds, b_sds),
@@ -124,7 +124,8 @@ def recsys_workload(cfg, shape: RecsysShape, mesh,
     cand_sds = _sds((shape.n_candidates,), torch.int32)
 
     def retrieve(params, batch, candidate_ids):
-        return recsys.retrieval_step(params, batch, candidate_ids, cfg)
+        return recsys.retrieval_step(params, batch, candidate_ids, cfg,
+                                     mesh)
 
     return Workload(
         name=name, kind="serve", fn=retrieve,

@@ -1,7 +1,10 @@
 """GNN shapes, the specialisation of an arch config to a shape, input
 stand-ins, their shardings and the training workload (the GNN archs and
-equiformer).  The workload runs on no mesh or a one-device mesh; a larger
-mesh raises (``common.MESH_TODO``)."""
+equiformer), on no mesh or on any mesh: each model's loss takes the mesh,
+whose layouts ``graph_shardings`` and the param specs give.  The GNN
+archs sum through the segment scatter-sum kernel's custom op (B4) in
+``gnn.Aggregation``; the equiformer's node sums are ``index_add_``.  On
+a mesh both run per rank, on each rank's edges."""
 
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ from repro_torch.models import equiformer, gnn, params as prm, \
 from repro_torch.training import optimizer
 from repro_torch.training.tree import value_and_grad
 
-from .common import Workload, _replicated, no_mesh
+from .common import Workload, _replicated
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,19 +121,16 @@ def gnn_workload(cfg, shape: GNNShape, mesh,
     """The training step of a GNN arch or equiformer on ``shape``:
     ``value_and_grad`` of the model's loss and AdamW (no weight decay by
     default)."""
-    no_mesh(mesh)
     opt_cfg = opt_cfg or optimizer.AdamWConfig(weight_decay=0.0)
     is_eq = isinstance(cfg, equiformer.EquiformerConfig)
     cfg = _specialize(cfg, shape)
     if is_eq:
         specs = equiformer.equiformer_param_specs(cfg)
         grad_fn = value_and_grad(equiformer.loss_fn)
-        extra = (mesh,)
         edge_mult = cfg.edge_chunk or 1
     else:
         specs = gnn.gnn_param_specs(cfg)
         grad_fn = value_and_grad(gnn.loss_fn)
-        extra = ()
         edge_mult = 1
 
     p_sds = prm.tree_sds(specs)
@@ -147,7 +147,7 @@ def gnn_workload(cfg, shape: GNNShape, mesh,
             graph_shardings(mesh, g_sds))
 
     def step(params, opt_state, batch):
-        loss, grads = grad_fn(params, batch, cfg, *extra)
+        loss, grads = grad_fn(params, batch, cfg, mesh)
         new_p, new_o, metrics = optimizer.apply_updates(
             opt_cfg, params, grads, opt_state)
         metrics["loss"] = loss

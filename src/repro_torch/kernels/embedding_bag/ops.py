@@ -12,20 +12,26 @@ raises; for CPU tensors — the tests' only device — it runs the plain
 version in :mod:`.ref`.  :data:`launches` counts kernel launches per
 wrapper and nothing else.
 
-:func:`embedding_bag_fields` is a ``torch.autograd.Function`` on every
-device: its gradient with respect to the tables is the C function
-``embedding_bag_fields_backward`` (all fields in one launch, fp32
-atomics) on CUDA and one ``index_add_`` per field on the CPU; with
-respect to the dense columns it is their columns of the output gradient.
-ids and weights get no gradient.
+:func:`embedding_bag_fields` and its transpose are ``torch.library``
+custom ops, ``torch.ops.repro_torch.embedding_bag_fields`` and
+``torch.ops.repro_torch.embedding_bag_fields_backward``, each with a CUDA
+kernel (the launch) and a CPU kernel (the plain version), a fake
+implementation (their shapes, for the dry run's fake tensors) and a FLOP
+formula (``2 B F K D``).  The forward's autograd is the transpose with
+respect to the tables — the C function ``embedding_bag_fields_backward``
+(all fields in one launch, fp32 atomics) on CUDA, one ``index_add_`` per
+field on the CPU — and the dense columns of the output gradient with
+respect to ``dense``; ids and weights get no gradient.
 """
 
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
+from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import ref
 
@@ -235,47 +241,86 @@ def launch_fields_backward_kernel(tables, ids, weights, grad_x0,
     return grads
 
 
-def fields_backward(tables, ids, weights, grad_x0, n_dense: int):
+@torch.library.custom_op("repro_torch::embedding_bag_fields_backward",
+                         mutates_args=(), device_types="cpu")
+def fields_backward(tables: list[torch.Tensor], ids: torch.Tensor,
+                    weights: torch.Tensor, grad_x0: torch.Tensor,
+                    n_dense: int) -> list[torch.Tensor]:
     """The tables' gradients of :func:`embedding_bag_fields`, each in its
     table's dtype: the kernel on CUDA, one ``index_add_`` per field on the
     CPU; both sum in fp32 and cast once."""
-    if grad_x0.is_cuda:
-        grads = launch_fields_backward_kernel(tables, ids, weights, grad_x0,
-                                              n_dense)
-    elif grad_x0.device.type == "cpu":
-        grads = ref.embedding_bag_fields_backward(
-            [t.shape[0] for t in tables], ids, weights, grad_x0, n_dense)
-    else:
-        raise ValueError(f"unsupported device {grad_x0.device}")
+    grads = ref.embedding_bag_fields_backward(
+        [t.shape[0] for t in tables], ids, weights, grad_x0, n_dense)
     return [g.to(t.dtype) for g, t in zip(grads, tables)]
 
 
-class _BagFields(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, ids, weights, dense, *tables):
-        ctx.save_for_backward(ids, weights)
-        ctx.tables = tables
-        ctx.dense_dtype = None if dense is None else dense.dtype
-        ctx.n_dense = 0 if dense is None else dense.shape[1]
-        first = tables[0] if tables else None
-        if first is not None and first.is_cuda:
-            return launch_fields_kernel(tables, ids, weights, dense)
-        if first is not None and first.device.type != "cpu":
-            raise ValueError(f"unsupported device {first.device}")
-        return ref.embedding_bag_fields(tables, ids, weights, dense)
+@fields_backward.register_kernel("cuda")
+def _fields_backward_cuda(tables, ids, weights, grad_x0, n_dense):
+    grads = launch_fields_backward_kernel(tables, ids, weights, grad_x0,
+                                          n_dense)
+    return [g.to(t.dtype) for g, t in zip(grads, tables)]
 
-    @staticmethod
-    def backward(ctx, grad_x0):
-        ids, weights = ctx.saved_tensors
-        need = ctx.needs_input_grad
-        grad_dense = (grad_x0[:, :ctx.n_dense].to(ctx.dense_dtype)
-                      if need[2] else None)
-        grads = [None] * len(ctx.tables)
-        if any(need[3:]):
-            grads = [g if n else None for g, n in zip(
-                fields_backward(ctx.tables, ids, weights, grad_x0,
-                                ctx.n_dense), need[3:])]
-        return (None, None, grad_dense, *grads)
+
+@fields_backward.register_fake
+def _(tables, ids, weights, grad_x0, n_dense):
+    d = tables[0].shape[1]
+    return [t.new_empty((t.shape[0], d)) for t in tables]
+
+
+@torch.library.custom_op("repro_torch::embedding_bag_fields",
+                         mutates_args=(), device_types="cpu")
+def _fields(tables: list[torch.Tensor], ids: torch.Tensor,
+            weights: torch.Tensor, dense: Optional[torch.Tensor]
+            ) -> torch.Tensor:
+    """x0 of every field; on the CPU the plain version."""
+    return ref.embedding_bag_fields(tables, ids, weights, dense)
+
+
+@_fields.register_kernel("cuda")
+def _fields_cuda(tables, ids, weights, dense):
+    return launch_fields_kernel(tables, ids, weights, dense)
+
+
+@_fields.register_fake
+def _(tables, ids, weights, dense):
+    out_dtype = ref.check_fields(tables, ids, weights, dense)
+    n_dense = 0 if dense is None else dense.shape[1]
+    return tables[0].new_empty(
+        (ids.shape[0], n_dense + len(tables) * tables[0].shape[1]),
+        dtype=out_dtype)
+
+
+@register_flop_formula([torch.ops.repro_torch.embedding_bag_fields,
+                        torch.ops.repro_torch.embedding_bag_fields_backward])
+def _fields_flops(tables_shape, ids_shape, *args, out_shape=None,
+                  **kwargs) -> int:
+    """A multiply and an add per id and column: ``2 B F K D``."""
+    b, f, k = ids_shape
+    return 2 * b * f * k * tables_shape[0][1]
+
+
+def _fields_setup(ctx, inputs, output):
+    tables, ids, weights, dense = inputs
+    ctx.save_for_backward(ids, weights)
+    ctx.tables = tables
+    ctx.dense_dtype = None if dense is None else dense.dtype
+    ctx.n_dense = 0 if dense is None else dense.shape[1]
+
+
+def _fields_backward(ctx, grad_x0):
+    ids, weights = ctx.saved_tensors
+    need_tables, _, _, need_dense = ctx.needs_input_grad
+    grad_dense = (grad_x0[:, :ctx.n_dense].to(ctx.dense_dtype)
+                  if need_dense else None)
+    grads = None
+    if any(need_tables):
+        grads = [g if n else None for g, n in zip(
+            fields_backward(ctx.tables, ids, weights, grad_x0, ctx.n_dense),
+            need_tables)]
+    return grads, None, None, grad_dense
+
+
+_fields.register_autograd(_fields_backward, setup_context=_fields_setup)
 
 
 def embedding_bag(table, ids, weights, out=None):
@@ -317,4 +362,7 @@ def embedding_bag_fields(tables, ids, weights, dense=None):
     if weights.requires_grad and torch.is_grad_enabled():
         raise ValueError("embedding_bag_fields computes no gradient for "
                          "weights; detach them")
-    return _BagFields.apply(ids, weights, dense, *tables)
+    first = tables[0] if len(tables) else None
+    if first is not None and first.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {first.device}")
+    return _fields(list(tables), ids, weights, dense)

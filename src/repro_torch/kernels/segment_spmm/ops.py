@@ -11,21 +11,27 @@ sources (:meth:`SegmentPlan.compose`) to sum ``h[src]`` straight from the
 node rows of ``h`` — so neither a sorted copy of the values nor the
 ``[E, D]`` gathered messages are made.
 
-:func:`segment_sum` is a ``torch.autograd.Function`` on every device, so
-the CPU tests run the backward that runs on the card.  Its gradient with
-respect to per-edge values (rows = the plan's permutation) is a masked
-gather of the output gradient by destination; with respect to node rows
-read through a row index (``plan.compose(src)``) it is the same kernel
-on the transposed plan (:func:`transpose`): each kept position adds the
-output gradient's row of its segment into the row it read.
+The kernel's two entry points are ``torch.library`` custom ops,
+``torch.ops.repro_torch.segment_bounds`` (a plan's offsets) and
+``torch.ops.repro_torch.segment_spmm`` (the sum), so fake tensors trace
+them (``register_fake`` gives their shapes), ``FlopCounterMode`` counts
+them (one add per position and column) and autograd differentiates the
+sum on every device, the CPU tests running the backward that runs on the
+card.  Its gradient with respect to per-edge values (rows = the plan's
+permutation) is a masked gather of the output gradient by destination;
+with respect to node rows read through a row index
+(``plan.compose(src)``) it is the same op on the transposed plan
+(:func:`transpose`): each kept position adds the output gradient's row of
+its segment into the row it read.
 
-For CUDA tensors the wrapper launches the kernel on PyTorch's current
-stream (built with ``nvcc`` at first use, see :mod:`.._build`) or raises;
-for CPU tensors — the tests' only device — it runs the plain version
-(:mod:`.ref`).  :data:`launches` counts launches of the sum kernel and
-nothing else, the backward's apart from the forward's; :data:`plans`
-counts plans built, on any device (on CUDA each one launches the
-kernel's bounds pass), the transposed plans of the backward apart.
+Each op has a CUDA kernel, which launches the kernel on PyTorch's current
+stream (built with ``nvcc`` at first use, see :mod:`.._build`) or raises,
+and a CPU kernel, the plain version (:mod:`.ref`) — the tests' only
+device; any other device raises.  :data:`launches` counts launches of the
+sum kernel and nothing else, the backward's apart from the forward's;
+:data:`plans` counts plans built, on any device (on CUDA each one
+launches the kernel's bounds pass), the transposed plans of the backward
+apart.
 """
 
 from __future__ import annotations
@@ -33,8 +39,10 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 from pathlib import Path
+from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import ref
 
@@ -113,6 +121,11 @@ class SegmentPlan:
         return index.to(torch.int32).index_select(0, self.order)
 
 
+def _check_device(x) -> None:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+
+
 def plan(segment_ids, num_segments: int, mask=None, *,
          count: str = "segment_plan") -> SegmentPlan:
     """Sort ``segment_ids [E]`` (masked and out-of-range rows to the
@@ -133,22 +146,37 @@ def plan(segment_ids, num_segments: int, mask=None, *,
                          f"[0, {_INT32_MAX})")
     if segment_ids.shape[0] > _INT32_MAX:
         raise ValueError("more than 2^31 - 1 rows")
-    dev = segment_ids.device
+    _check_device(segment_ids)
     ids = ref.kept_ids(segment_ids.to(torch.int32), num_segments, mask)
     sorted_ids, order = torch.sort(ids, stable=True)
     order = order.to(torch.int32)
-    if dev.type == "cuda":
-        offsets = torch.empty(num_segments + 1, dtype=torch.int64,
-                              device=dev)
-        _call("segment_bounds", dev, sorted_ids.data_ptr(),
-              sorted_ids.shape[0], num_segments, offsets.data_ptr())
-    elif dev.type == "cpu":
-        offsets = torch.searchsorted(
-            sorted_ids, torch.arange(num_segments + 1, dtype=torch.int32))
-    else:
-        raise ValueError(f"unsupported device {dev}")
+    offsets = torch.ops.repro_torch.segment_bounds(sorted_ids, num_segments)
     plans[count] += 1
     return SegmentPlan(sorted_ids, order, offsets, num_segments)
+
+
+@torch.library.custom_op("repro_torch::segment_bounds", mutates_args=(),
+                         device_types="cpu")
+def _bounds(sorted_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """``offsets int64[num_segments + 1]`` of ascending ``sorted_ids``:
+    on the CPU ``torch.searchsorted``."""
+    return torch.searchsorted(sorted_ids, torch.arange(
+        num_segments + 1, dtype=torch.int32, device=sorted_ids.device))
+
+
+@_bounds.register_kernel("cuda")
+def _bounds_cuda(sorted_ids, num_segments):
+    """The kernel's bounds pass."""
+    offsets = torch.empty(num_segments + 1, dtype=torch.int64,
+                          device=sorted_ids.device)
+    _call("segment_bounds", sorted_ids.device, sorted_ids.data_ptr(),
+          sorted_ids.shape[0], num_segments, offsets.data_ptr())
+    return offsets
+
+
+@_bounds.register_fake
+def _(sorted_ids, num_segments):
+    return sorted_ids.new_empty(num_segments + 1, dtype=torch.int64)
 
 
 def transpose(seg_plan: SegmentPlan, rows, n_rows: int):
@@ -215,15 +243,70 @@ def launch_kernel(values, seg_plan: SegmentPlan, rows,
     return out
 
 
-def _sum(values, seg_plan: SegmentPlan, rows, count: str):
-    """The sum on the values' device: the kernel on CUDA, its plain
-    version on the CPU."""
-    if values.is_cuda:
-        return launch_kernel(values, seg_plan, rows, count=count)
-    if values.device.type != "cpu":
-        raise ValueError(f"unsupported device {values.device}")
-    return ref.segment_sum(values, rows, seg_plan.sorted_ids,
-                           seg_plan.num_segments)
+@torch.library.custom_op("repro_torch::segment_spmm", mutates_args=(),
+                         device_types="cpu")
+def _spmm(values: torch.Tensor, rows: torch.Tensor, sorted_ids: torch.Tensor,
+          offsets: torch.Tensor, num_segments: int, per_edge: bool,
+          t_rows: Optional[torch.Tensor], t_sorted_ids: Optional[torch.Tensor],
+          t_offsets: Optional[torch.Tensor], backward: bool) -> torch.Tensor:
+    """The sum over a plan (``sorted_ids``, ``offsets``) of ``values``
+    read through ``rows``; on the CPU the plain version.  ``per_edge``:
+    ``rows`` is the plan's permutation.  ``t_*``: the transposed plan of
+    a row-indexed sum, made once per graph (else the backward makes it).
+    ``backward``: the launch is counted as a backward's."""
+    return ref.segment_sum(values, rows, sorted_ids, num_segments)
+
+
+@_spmm.register_kernel("cuda")
+def _spmm_cuda(values, rows, sorted_ids, offsets, num_segments, per_edge,
+               t_rows, t_sorted_ids, t_offsets, backward):
+    plan_ = SegmentPlan(sorted_ids, rows, offsets, num_segments)
+    return launch_kernel(values, plan_, rows, count="segment_spmm_backward"
+                         if backward else "segment_spmm")
+
+
+@_spmm.register_fake
+def _(values, rows, sorted_ids, offsets, num_segments, *_):
+    return values.new_empty((num_segments, values.shape[1]))
+
+
+@register_flop_formula(torch.ops.repro_torch.segment_spmm)
+def _spmm_flops(values_shape, rows_shape, *args, out_shape=None,
+                **kwargs) -> int:
+    """One fp32 add per position and column: every position, as its
+    count of kept rows is data the formula does not see (PERF.md counts
+    B4's bound on the kept rows)."""
+    return rows_shape[0] * values_shape[1]
+
+
+def _spmm_setup(ctx, inputs, output):
+    values, rows, sorted_ids, _, num_segments, per_edge, t_rows, \
+        t_sorted_ids, t_offsets, _ = inputs
+    ctx.n_rows, ctx.per_edge = values.shape[0], per_edge
+    ctx.num_segments = num_segments
+    ctx.save_for_backward(rows, sorted_ids, t_rows, t_sorted_ids, t_offsets)
+
+
+def _spmm_backward(ctx, grad):
+    rows, sorted_ids, t_rows, t_sorted_ids, t_offsets = ctx.saved_tensors
+    # what the two gradients read of the plan: edge_grad its permutation
+    # (the rows of a per-edge sum) and ids, transpose its ids
+    seg_plan = SegmentPlan(sorted_ids, rows, None, ctx.num_segments)
+    if not ctx.needs_input_grad[0]:
+        value_grad = None
+    elif ctx.per_edge:
+        value_grad = edge_grad(grad, seg_plan)
+    else:
+        if t_rows is None:
+            transposed = transpose(seg_plan, rows, ctx.n_rows)
+        else:
+            transposed = (SegmentPlan(t_sorted_ids, None, t_offsets,
+                                      ctx.n_rows), t_rows)
+        value_grad = row_grad(grad, transposed)
+    return (value_grad,) + (None,) * 9
+
+
+_spmm.register_autograd(_spmm_backward, setup_context=_spmm_setup)
 
 
 def edge_grad(grad, seg_plan: SegmentPlan):
@@ -242,26 +325,9 @@ def row_grad(grad, transposed):
     rows: B4 on the transposed plan (``transposed`` from
     :func:`transpose`), counted as a backward launch."""
     t_plan, t_rows = transposed
-    return _sum(grad.contiguous(), t_plan, t_rows, "segment_spmm_backward")
-
-
-class _SegmentSum(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, values, seg_plan, rows, transposed):
-        ctx.seg_plan, ctx.rows, ctx.transposed = seg_plan, rows, transposed
-        ctx.n_rows = values.shape[0]
-        return _sum(values, seg_plan,
-                    seg_plan.order if rows is None else rows, "segment_spmm")
-
-    @staticmethod
-    def backward(ctx, grad):
-        if not ctx.needs_input_grad[0]:
-            return None, None, None, None
-        if ctx.rows is None:
-            return edge_grad(grad, ctx.seg_plan), None, None, None
-        transposed = ctx.transposed or transpose(ctx.seg_plan, ctx.rows,
-                                                 ctx.n_rows)
-        return row_grad(grad, transposed), None, None, None
+    return _spmm(grad.contiguous(), t_rows, t_plan.sorted_ids,
+                 t_plan.offsets, t_plan.num_segments, False, None, None,
+                 None, True)
 
 
 def segment_sum(values, seg_plan: SegmentPlan, rows=None, transposed=None):
@@ -278,14 +344,19 @@ def segment_sum(values, seg_plan: SegmentPlan, rows=None, transposed=None):
         rows; else the backward makes it when a gradient is needed.
     Returns:
       ``[num_segments, D]`` in the values' dtype.  CUDA tensors go to the
-      kernel, CPU tensors to its plain version, forward and backward.
+      kernel, CPU tensors to its plain version, forward and backward
+      (``torch.ops.repro_torch.segment_spmm``).
     """
     if rows is not None and rows.shape != seg_plan.order.shape:
         raise ValueError(f"rows has shape {tuple(rows.shape)}, expected "
                          f"{tuple(seg_plan.order.shape)}")
-    if not values.is_cuda and values.device.type != "cpu":
-        raise ValueError(f"unsupported device {values.device}")
-    return _SegmentSum.apply(values, seg_plan, rows, transposed)
+    _check_device(values)
+    t_plan, t_rows = transposed or (None, None)
+    return _spmm(values, seg_plan.order if rows is None else rows,
+                 seg_plan.sorted_ids, seg_plan.offsets,
+                 seg_plan.num_segments, rows is None, t_rows,
+                 None if t_plan is None else t_plan.sorted_ids,
+                 None if t_plan is None else t_plan.offsets, False)
 
 
 def scatter_sum(values, segment_ids, num_segments: int, mask=None):

@@ -100,7 +100,8 @@ class RankCounter(TorchDispatchMode):
     on the shards, and those ops are counted):
 
     * ``flops``: ``torch.utils.flop_counter``'s formulas (the matmul
-      family, FlopCounterMode's count);
+      family, FlopCounterMode's count, and the formulas the B4 and B5
+      custom ops register);
     * ``collectives``: ``(kind, bytes)`` of each functional collective;
     * ``op_bytes``: the bytes each op reads and writes (an upper bound on
       the memory traffic, as HLO's "bytes accessed" is);

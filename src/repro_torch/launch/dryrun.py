@@ -11,9 +11,14 @@ of a fake process group of 256 or 512 ranks, as rank 0.  It records:
     whether it fits one H100's 80 GB.
 The Python layer loop runs every layer, so no scan calibration is needed
 (``scan_calibrated`` is false and ``flops_per_chip == flops_per_chip_raw``).
-A mining cell is not traced (its kernel is a ctypes call): its ops and
-bytes come from ``configs.ptmt.analytic_mining_terms`` and its memory from
-the executor's own model (``configs.ptmt.mining_rank_bytes``).
+The GNN, equiformer and DCN-v2 steps reach the B4 and B5 kernels through
+their ``torch.library`` custom ops: the fake tensors (on the CPU, as for
+every cell: a custom op's fake implementation gives its shapes on any
+device) run their fake implementations, and the counter counts them by
+their FLOP formulas.  A mining cell is not traced (its kernel is a ctypes
+call): its ops and bytes come from ``configs.ptmt.analytic_mining_terms``
+and its memory from the executor's own model
+(``configs.ptmt.mining_rank_bytes``).
 
 Results are cached as one JSON per cell under --out; reruns skip finished
 cells.  ``--orchestrate`` runs every remaining cell in a fresh subprocess
@@ -152,15 +157,19 @@ def local_args(wl, shape, make):
     return args
 
 
-def run_real(arch_name: str, shape_name: str, *, n_layers: int = 2,
-             device: str = "cuda") -> dict:
-    """One LM cell at ``n_layers`` layers run for real as rank 0 of the
-    single-pod production mesh on a fake world: real tensors on
-    ``device``, each rank-sized and drawn from seed 0, whose collectives
-    move nothing (so the values mean nothing).  Returns the rank's FLOPs
-    (counted as :func:`trace_step` counts them), ms of a step after a
-    warm-up, and on CUDA the step's peak memory
-    (``max_memory_allocated``, arguments included)."""
+def run_real(arch_name: str, shape_name: str, *,
+             n_layers: int | None = 2, device: str = "cuda") -> dict:
+    """One cell at ``n_layers`` layers (``None``, or a config without
+    layers: whole) run for real as rank 0 of the single-pod production
+    mesh on a fake world: real tensors on ``device``, each rank-sized and
+    drawn from seed 0, whose collectives move nothing (so the values mean
+    nothing).  Returns the rank's FLOPs (counted as :func:`trace_step`
+    counts them), ms of a step after a warm-up, the kernels' launch
+    counts of that step, and on CUDA the step's peak memory: its
+    ``max_memory_allocated`` less what stays allocated before the step
+    apart from its arguments (``held_bytes``: cuBLAS's workspace, made in
+    the warm-up), so the arguments and what the step allocates, as the
+    dry run counts them."""
     import torch
     import torch.distributed as dist
 
@@ -175,35 +184,55 @@ def run_real(arch_name: str, shape_name: str, *, n_layers: int = 2,
         mesh = mesh_lib.make_test_mesh(dims, axes,
                                        device_type=torch.device(device).type)
         arch = get_arch(arch_name)
-        wl = arch.workload_with_depth(shape_name, mesh, n_layers)
+        wl = None if n_layers is None else arch.workload_with_depth(
+            shape_name, mesh, n_layers)
+        if wl is None:
+            wl = arch.workload(shape_name, mesh)
         gen = torch.Generator(device=device).manual_seed(0)
         on_cuda = torch.device(device).type == "cuda"
         sync = torch.cuda.synchronize if on_cuda else (lambda: None)
 
         def make(dims, dtype):
             # floats drawn from the seed (x 0.02); integers 0: a valid
-            # token, a step counter
+            # token, a step counter, node 0; masks on
             if dtype.is_floating_point:
                 return (torch.randn(dims, generator=gen, device=device)
                         * 0.02).to(dtype)
+            if dtype == torch.bool:
+                return torch.ones(dims, dtype=dtype, device=device)
             return torch.zeros(dims, dtype=dtype, device=device)
 
         args = local_args(wl, arch.shape(shape_name), make)
         wl.fn(*args)                                        # warm-up
         sync()
+        held = None
         if on_cuda:
             torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated() - _local_bytes(args)
         counter = analysis.RankCounter()
+        for ops in _kernel_ops():
+            ops.reset_launches()
         t0 = time.perf_counter()
         with counter:
             wl.fn(*args)
         sync()
         ms = (time.perf_counter() - t0) * 1e3
-        peak = torch.cuda.max_memory_allocated() if on_cuda else None
+        peak = torch.cuda.max_memory_allocated() - held if on_cuda \
+            else None
+        launches = {k: v for ops in _kernel_ops()
+                    for k, v in ops.launches.items() if v}
     finally:
         dist.destroy_process_group()
     return {"flops": counter.flops, "ms": ms, "peak_bytes": peak,
-            "collectives": len(counter.collectives)}
+            "held_bytes": held, "collectives": len(counter.collectives),
+            "launches": launches}
+
+
+def _kernel_ops():
+    from repro_torch.kernels.embedding_bag import ops as bag_ops
+    from repro_torch.kernels.segment_spmm import ops as spmm_ops
+
+    return spmm_ops, bag_ops
 
 
 def _mining_record(arch, shape, n_chips: int) -> dict:

@@ -23,8 +23,20 @@ rounding.
 The edge pipeline runs as a Python loop over edge chunks, each chunk
 checkpointed while gradients are recorded (the JAX package's
 ``jax.checkpoint(nothing_saveable)`` around its scan body); above 1M
-edges each layer is checkpointed too.  The SO(2) convolution writes its
-output out of place (``index_copy`` into zeros).
+edges each layer is checkpointed too.  Each edge's Wigner blocks depend
+on the geometry alone, so they are made once per forward, for every layer
+and chunk (the JAX package remakes them in each chunk of each layer: the
+same values, fewer operations).  The SO(2) convolution writes its output
+out of place (``index_copy`` into zeros).
+
+On a mesh the ``constrain`` calls are the JAX package's, call for call
+(the edge geometry, the node state, the attention and radial weights,
+each chunk's rotated sources and each layer's output).  The per-edge
+work runs on each rank's own edges (``sharding.scatter_local``): it
+reads the node rows from the node state gathered whole, loops over its
+share of every chunk, and its node sums are partial sums over the
+ranks that split the edges, added up over the chunks and reduced onto
+the nodes' shards once per layer; the SO(2) output stays on the rank.
 """
 
 from __future__ import annotations
@@ -36,10 +48,11 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Shard
 from torch.utils import checkpoint as ckpt
 
 from . import sharding as shd
-from .gnn import segment_softmax
+from .gnn import nll, segment_softmax, segment_sum_rows
 from .params import ParamSpec, count_params
 
 #: above this many edges each layer is checkpointed whole
@@ -105,12 +118,16 @@ def real_sph_harm(dirs, l_max: int):
 @functools.lru_cache(maxsize=8)
 def _sample_pinv(l_max: int, n_samples: int = 24, seed: int = 7):
     """Fixed generic sample directions + per-degree pinv(Y_l(X)), as numpy
-    arrays (moved to the device per call)."""
+    arrays (moved to the device per call).  Host set-up, made outside any
+    dispatch mode (the dry run's fake tensors and counters)."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
     rng = np.random.default_rng(seed)
     pts = rng.standard_normal((n_samples, 3))
     pts /= np.linalg.norm(pts, axis=1, keepdims=True)
     pts = pts.astype(np.float32)
-    y = real_sph_harm(torch.from_numpy(pts), l_max).numpy()
+    with _disable_current_modes():
+        y = real_sph_harm(torch.from_numpy(pts), l_max).numpy()
     pinvs = []
     for l in range(l_max + 1):
         block = y[:, l * l: (l + 1) * (l + 1)]          # [K, 2l+1]
@@ -150,10 +167,10 @@ def wigner_blocks(rot, l_max: int):
 def rotate_irreps(x, blocks, *, inverse=False):
     """x: [E, (L+1)^2, C]; apply block-diag Wigner (or its transpose)."""
     outs = []
-    eq = "enm,enc->emc" if inverse else "emn,enc->emc"
     for l, d in enumerate(blocks):
         seg = x[:, l * l: (l + 1) * (l + 1), :]
-        outs.append(torch.einsum(eq, d, seg))
+        # einsum "emn,enc->emc" (or "enm,...") as the batched product
+        outs.append(torch.bmm(d.transpose(1, 2) if inverse else d, seg))
     return torch.cat(outs, dim=1)
 
 
@@ -226,9 +243,10 @@ def equiformer_param_specs(cfg: EquiformerConfig) -> dict:
 # forward
 # ---------------------------------------------------------------------------
 
-def _radial_basis(dist, n_radial: int, r_cut: float = 6.0):
+def _radial_basis(dist, n_radial: int, r_cut: float = 6.0, mesh=None):
     """Gaussian radial basis [E, n_radial]."""
-    centers = torch.linspace(0.0, r_cut, n_radial, device=dist.device)
+    centers = shd.replicate(torch.linspace(
+        0.0, r_cut, n_radial, device=dist.device), mesh)
     gamma = n_radial / r_cut
     return torch.exp(-gamma * torch.square(dist[:, None] - centers[None, :]))
 
@@ -281,16 +299,51 @@ def _equivariant_ln(x, scale, cfg: EquiformerConfig):
     return torch.cat(outs, dim=1)
 
 
-def _messages(y, lp, cfg: EquiformerConfig, src, rhat, radial, alpha,
-              mask):
-    """One edge chunk's messages ``[chunk, I, C]`` in the node frame:
-    rotate ``y[src]`` into each edge's frame, SO(2) conv, modulate by the
-    radial and attention weights, rotate back, zero the masked edges."""
-    blocks = wigner_blocks(edge_alignment_rotation(rhat), cfg.l_max)
-    msg = _so2_conv(rotate_irreps(y[src], blocks), lp, cfg)
-    msg = msg * (radial * alpha)[:, None, :]
-    msg = rotate_irreps(msg, blocks, inverse=True)
-    return torch.where(mask[:, None, None], msg, 0.0)
+def _so2_names(cfg: EquiformerConfig) -> list[str]:
+    """The SO(2) convolution's weights of a layer."""
+    return ["w_m0"] + [f"w_m{m}_{p}" for m in range(1, cfg.m_max + 1)
+                       for p in "ri"]
+
+
+def _chunk_sum(y, lp, cfg: EquiformerConfig, edges, i: int, n_chunks: int,
+               mesh):
+    """Chunk ``i`` of the edges' messages summed into the nodes ``[N, I,
+    C]``: rotate ``y[src]`` into each edge's frame (its Wigner blocks in
+    ``edges``), SO(2) conv, modulate by the radial and attention weights,
+    rotate back, zero the masked edges, add by destination.  On a mesh each rank takes chunk ``i`` of
+    its own edges and its sum is a partial sum."""
+    src, dst, blocks, radial, alpha_c, edge_mask = edges
+    n = y.shape[0]
+    n_blocks = cfg.l_max + 1
+
+    def part(e):
+        k = e.shape[0] // n_chunks
+        return slice(i * k, (i + 1) * k)
+
+    def rotate_in(y_, s_, *blocks_):
+        p = part(s_)
+        return rotate_irreps(y_[s_[p].long()], [b[p] for b in blocks_])
+
+    x_e = shd.scatter_local(rotate_in, src, "row", ("all", y),
+                            ("row", src), *(("row", b) for b in blocks))
+    x_e = shd.constrain(x_e, mesh, shd.BATCH, None, shd.MODEL)
+    names = _so2_names(cfg)
+
+    def rotate_out(x_, d_, rad, al, m_, *rest):
+        p = part(d_)
+        blocks_ = [b[p] for b in rest[:n_blocks]]
+        ws = rest[n_blocks:]
+        msg = _so2_conv(x_, dict(zip(names, ws)), cfg)
+        msg = msg * (rad[p] * al[p])[:, None, :]
+        msg = rotate_irreps(msg, blocks_, inverse=True)
+        msg = torch.where(m_[p][:, None, None], msg, 0.0)
+        return msg.new_zeros((n, *msg.shape[1:])).index_add_(
+            0, d_[p].long(), msg)
+
+    return shd.scatter_local(
+        rotate_out, src, "partial", ("row", x_e), ("row", dst),
+        ("row", radial), ("row", alpha_c), ("row", edge_mask),
+        *(("row", b) for b in blocks), *(("all", lp[k]) for k in names))
 
 
 def _checkpointed(fn):
@@ -301,29 +354,40 @@ def _checkpointed(fn):
     return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
 
 
-def _layer(x, lp, cfg: EquiformerConfig, edges, n_chunks: int):
+def _layer(x, lp, cfg: EquiformerConfig, edges, n_chunks: int, mesh=None):
     """One equivariant attention layer and its gated FFN on ``x``."""
-    src, dst, rhat, rbf, edge_mask = edges
+    src, dst, blocks, rbf, edge_mask, e_spec = edges
     n, _, c = x.shape
     y = _equivariant_ln(x, lp["ln_scale"], cfg)
     # pass 1 — invariant attention logits from node scalars + distance
-    y0 = y[:, 0, :]
-    inv = torch.cat([y0[src] + y0[dst], rbf], dim=-1)
+    inv = shd.scatter_local(
+        lambda y0, s_, d_, r_: torch.cat([y0[s_.long()] + y0[d_.long()],
+                                          r_], dim=-1),
+        src, "row", ("all", y[:, 0, :]), ("row", src), ("row", dst),
+        ("row", rbf))
     logits = inv @ lp["attn_w"]                            # [E, heads]
     alpha = segment_softmax(logits, dst, n, edge_mask)     # [E, heads]
-    alpha_c = alpha.repeat_interleave(c // cfg.n_heads, dim=1)  # [E, C]
+    alpha_c = shd.scatter_local(                           # [E, C]
+        lambda a: a.repeat_interleave(c // cfg.n_heads, dim=1), src, "row",
+        ("row", alpha))
+    alpha_c = shd.constrain(alpha_c, mesh, e_spec, None)
     radial = F.silu(rbf @ lp["radial_w1"] + lp["radial_b1"])
+    radial = shd.constrain(radial, mesh, e_spec, None)
 
     # pass 2 — chunked equivariant messages, each chunk recomputed in the
     # backward pass so the per-edge irrep intermediates stay O(chunk)
-    chunk = src.shape[0] // n_chunks
-    messages = _checkpointed(_messages)
-    agg = torch.zeros_like(x)
+    chunk_sum = _checkpointed(_chunk_sum)
+    chunk_edges = (src, dst, blocks, radial, alpha_c, edge_mask)
+    # the node state the chunks read from, gathered once per layer when
+    # there are several (one chunk gathers it itself, inside its
+    # checkpoint, so the gathered copy is not kept for the backward)
+    y_all = shd.whole(y) if n_chunks > 1 else y
+    agg = None
     for i in range(n_chunks):
-        part = slice(i * chunk, (i + 1) * chunk)
-        msg = messages(y, lp, cfg, src[part], rhat[part], radial[part],
-                       alpha_c[part], edge_mask[part])
-        agg.index_add_(0, dst[part], msg)
+        part = chunk_sum(y_all, lp, cfg, chunk_edges, i, n_chunks, mesh)
+        agg = part if agg is None else shd.partial_add(agg, part)
+    if shd.on_mesh(mesh):
+        agg = agg.redistribute(mesh, x.placements)
     x = x + agg
 
     # gated equivariant FFN
@@ -331,12 +395,26 @@ def _layer(x, lp, cfg: EquiformerConfig, edges, n_chunks: int):
     scalar = y2[:, 0, :]
     h0 = F.silu(scalar @ lp["ffn_w1"]) @ lp["ffn_w2"]
     gates = torch.sigmoid(scalar @ lp["gate_w"])           # [N, l_max*C]
-    gates = gates.reshape(n, cfg.l_max, c)
     upd = [h0[:, None, :]]
     for l in range(1, cfg.l_max + 1):
         seg = y2[:, l * l: (l + 1) * (l + 1), :]
-        upd.append(seg * gates[:, l - 1][:, None, :])
-    return x + torch.cat(upd, dim=1)
+        upd.append(seg * gates[:, (l - 1) * c:l * c][:, None, :])
+    return shd.constrain(x + torch.cat(upd, dim=1), mesh, shd.BATCH, None,
+                         shd.MODEL)
+
+
+def _embed(h, n_irreps: int):
+    """``[N, C]`` scalars into ``[N, n_irreps, C]`` irreps, the higher
+    degrees zero (on a mesh per rank, on ``h``'s shards)."""
+    def local(h_):
+        return torch.cat([h_[:, None, :], h_.new_zeros(
+            (h_.shape[0], n_irreps - 1, h_.shape[1]))], dim=1)
+
+    if not isinstance(h, DTensor):
+        return local(h)
+    hp = tuple(h.placements)
+    out = tuple(Shard(2) if p == Shard(1) else p for p in hp)
+    return shd.local_call(local, out, (hp,), h)
 
 
 def forward(params, g, cfg: EquiformerConfig, mesh=None):
@@ -350,30 +428,37 @@ def forward(params, g, cfg: EquiformerConfig, mesh=None):
     before the chunked sweep (two-pass attention).
     """
     n = g["node_feat"].shape[0]
-    c = cfg.d_hidden
-    src, dst = g["edge_src"].long(), g["edge_dst"].long()
+    src, dst = g["edge_src"], g["edge_dst"]
 
-    rel = g["positions"][src] - g["positions"][dst]
+    rel = shd.scatter_local(lambda pos, s_, d_: pos[s_.long()] - pos[
+        d_.long()], src, "row", ("all", g["positions"]), ("row", src),
+        ("row", dst))
     dist = torch.sqrt(torch.sum(rel * rel, dim=-1) + 1e-12)
     # zero-length edges (self-loops / padding) have no direction: their
     # alignment rotation would be singular and break equivariance — mask them.
     edge_mask = g["edge_mask"] & (dist > 1e-5)
-    rhat = rel / dist[:, None]
-    rbf = _radial_basis(dist, cfg.n_radial)
+    e_total = src.shape[0]
+    e_spec = shd.EDGE if e_total > BIG_GRAPH_EDGES else shd.BATCH
+    rhat = shd.constrain(rel / dist[:, None], mesh, e_spec, None)
+    rbf = shd.constrain(_radial_basis(dist, cfg.n_radial, mesh=mesh), mesh,
+                        e_spec, None)
 
     # init: scalar channel from inputs, higher degrees zero
-    h = g["node_feat"] @ params["embed_w"]
-    x = torch.cat([h[:, None, :], h.new_zeros((n, cfg.n_irreps - 1, c))],
-                  dim=1)
+    x = _embed(g["node_feat"] @ params["embed_w"], cfg.n_irreps)
     x = shd.constrain(x, mesh, shd.BATCH, None, shd.MODEL)
 
-    e_total = src.shape[0]
     chunk = cfg.edge_chunk or e_total
     n_chunks = max(e_total // chunk, 1)
     if e_total % n_chunks:
         raise ValueError(f"{e_total} edges do not split into {n_chunks} "
                          f"chunks of edge_chunk={cfg.edge_chunk}")
-    edges = (src, dst, rhat, rbf, edge_mask)
+    # each edge's Wigner blocks, made once for every layer and chunk: they
+    # depend on the geometry alone
+    blocks = shd.scatter_local(
+        lambda r_: tuple(wigner_blocks(edge_alignment_rotation(r_),
+                                       cfg.l_max)), src,
+        ("row",) * (cfg.l_max + 1), ("row", rhat))
+    edges = (src, dst, tuple(blocks), rbf, edge_mask, e_spec)
     layer = _layer
     # checkpoint whole layers on big graphs: only the [N, irreps, C] state
     # survives the forward; everything per-edge is recomputed in backward
@@ -382,12 +467,11 @@ def forward(params, g, cfg: EquiformerConfig, mesh=None):
     slices = {k: w.unbind(0) for k, w in params["layers"].items()}
     for i in range(cfg.n_layers):
         lp = {k: w[i] for k, w in slices.items()}
-        x = layer(x, lp, cfg, edges, n_chunks)
+        x = layer(x, lp, cfg, edges, n_chunks, mesh)
 
     scalars = torch.where(g["node_mask"][:, None], x[:, 0, :], 0.0)
     if cfg.readout == "graph":
-        pooled = scalars.new_zeros((cfg.n_graphs, c)).index_add_(
-            0, g["graph_ids"].long(), scalars)
+        pooled = segment_sum_rows(scalars, g["graph_ids"], cfg.n_graphs)
         return pooled @ params["head_w"] + params["head_b"]
     return scalars @ params["head_w"] + params["head_b"]
 
@@ -400,9 +484,8 @@ def loss_fn(params, batch, cfg: EquiformerConfig, mesh=None):
     if cfg.n_classes == 1:   # regression (molecule energies)
         target = batch["targets"].to(torch.float32)
         return torch.mean(torch.square(out[:, 0] - target))
-    logp = F.log_softmax(out.to(torch.float32), dim=-1)
-    nll = -logp.gather(-1, batch["labels"].long()[:, None])[:, 0]
+    losses = nll(out, batch["labels"])
     if cfg.readout == "graph":
-        return torch.mean(nll)
+        return torch.mean(losses)
     mask = batch["node_mask"].to(torch.float32)
-    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.sum(losses * mask) / torch.clamp(torch.sum(mask), min=1.0)

@@ -217,6 +217,66 @@ def local_call(fn, out_placements, in_placements, *args,
                      redistribute_inputs=True)(*args)
 
 
+def _row_layouts(rows, reduce: str):
+    """The placements of :func:`scatter_local`'s kinds, from the row-split
+    array ``rows``: ``(row, gathered, partial, partial gradient)``."""
+    row = tuple(Shard(0) if p == Shard(0) else Replicate()
+                for p in rows.placements)
+    return (row, (Replicate(),) * len(row),
+            tuple(Partial(reduce) if p == Shard(0) else p for p in row),
+            tuple(Partial() if p == Shard(0) else p for p in row))
+
+
+def scatter_local(fn, rows, out, *args, reduce: str = "sum"):
+    """``fn`` on this rank's shards of a scatter over the rows of a graph
+    (its edges, or its nodes for a readout): a per-rank segment sum into a
+    partial sum, a gather of node rows per edge.
+
+    ``rows`` is an array laid out by rows (an edge array: the mesh
+    dimensions where it is ``Shard(0)`` split the rows).  Each of ``args``
+    is a pair ``(kind, x)``: kind ``"row"`` takes ``x`` laid out like
+    ``rows`` (its gradient too); ``"all"`` gathers ``x`` whole to every
+    rank, and its gradient is a partial sum over the row-splitting
+    dimensions (each rank reads it for its own rows); ``None`` passes a
+    value that is not a DTensor.  ``out`` is a kind or a tuple of kinds
+    of ``fn``'s outputs: ``"row"``, or ``"partial"``, a ``Partial(reduce)``
+    over the row-splitting dimensions (replicated over the others).  The
+    MoE's groups run per rank the same way: DTensor has no rule for
+    ``index_add``, ``scatter_reduce`` or ``index_copy``.  Off a mesh
+    (``rows`` a plain tensor) it is ``fn`` on the tensors."""
+    values = tuple(x for _, x in args)
+    if not isinstance(rows, DTensor):
+        return fn(*values)
+    row, whole, partial, pgrad = _row_layouts(rows, reduce)
+    place = {"row": row, "all": whole, None: None}
+    grad = {"row": row, "all": pgrad, None: None}
+    outs = {"row": row, "partial": partial}
+    out_p = outs[out] if isinstance(out, str) else tuple(outs[k]
+                                                         for k in out)
+    return local_call(fn, out_p, tuple(place[k] for k, _ in args), *values,
+                      grad_placements=tuple(grad[k] for k, _ in args))
+
+
+def whole(x):
+    """DTensor ``x`` whole on every rank (gathered, a partial sum reduced);
+    plain tensors as they are."""
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(x.device_mesh, (Replicate(),) * x.device_mesh.ndim)
+
+
+def partial_add(a, b):
+    """``a + b`` of two DTensors of one layout that may hold partial sums,
+    added on each rank so that a partial sum stays one (DTensor would
+    reduce both first); plain tensors added."""
+    if not isinstance(a, DTensor):
+        return a + b
+    place = tuple(a.placements)
+    grad = tuple(Replicate() if isinstance(p, Partial) else p for p in place)
+    return local_call(torch.add, place, (place, place), a, b,
+                      grad_placements=(grad, grad))
+
+
 def rowwise(fn, x, n_out: int = 1):
     """``fn`` along the last dimension of DTensor ``x``, on each rank's
     shard: the last dimension is gathered first if it is sharded, and the
@@ -265,6 +325,22 @@ def merge_dims(x, dim: int, n: int):
     if isinstance(x, DTensor):
         return _Merge.apply(x, dim, tuple(x.shape[dim:dim + n]))
     return x.reshape(*x.shape[:dim], -1, *x.shape[dim + n:])
+
+
+def whole_on_model(x):
+    """DTensor ``x`` replicated over "model" (a shard gathered, a partial
+    sum reduced), its other placements kept; plain tensors as they are.
+    A decode step's attention and MLP outputs, partial sums over "model",
+    are reduced so into the residual stream: left to DTensor, the stream
+    is split over "model" by rows, and the next layer's projections then
+    run on weights gathered whole on every rank."""
+    if not isinstance(x, DTensor):
+        return x
+    names = x.device_mesh.mesh_dim_names or ()
+    want = tuple(Replicate() if n == MODEL else p
+                 for n, p in zip(names, x.placements))
+    return x if want == tuple(x.placements) else x.redistribute(
+        x.device_mesh, want)
 
 
 def gathered(w):

@@ -413,6 +413,7 @@ def serve_step(params, cache, tokens, cache_len, cfg: TransformerConfig,
             window=cfg.window, is_local=is_local, scale=cfg.d_head ** -0.5,
             mask=masks[is_local],
         )
-        x = x + _attn_out(out, lp, cfg.dtype)
-        x = x + _mlp(cfg, mesh, rms_norm(x, lp["ln2"]), lp)
+        x = x + shd.whole_on_model(_attn_out(out, lp, cfg.dtype))
+        x = x + shd.whole_on_model(_mlp(cfg, mesh, rms_norm(x, lp["ln2"]),
+                                        lp))
     return _logits(params, x, cfg)[:, 0].to(torch.float32), cache

@@ -471,7 +471,7 @@ def test_comine_groups_by_owner_and_matches_independent():
             name
 
 
-def test_worker_sharded_mine_is_discover_and_a_mesh_raises(tmp_path):
+def test_worker_sharded_mine_is_discover_or_sharded_on_a_mesh(tmp_path):
     """Without a mesh a worker's batch mine is ``engine.discover``; with
     one it is ``engine.sharded`` over the mesh, with the same counts as
     the JAX package's ``discover`` (``tests/test_cluster.py``'s mesh

@@ -14,8 +14,11 @@ and ``run_cell`` on a fake process group.
   ``"status": "ok"``, FLOPs per rank > 0 and ``useful_flops_ratio`` <= 1.
   DTensor's first call of each op signature costs far more on a 3-D mesh
   than on a 2-D one, so one case runs on (2, 2, 2) and the rest on (2, 2).
-- A GNN and a DCN-v2 cell on a larger mesh raise, naming the ROADMAP item;
-  through ``orchestrate`` they leave an error record that names it.
+- A GNN and a DCN-v2 cell on a (2, 2) mesh trace: unsharded their FLOPs
+  equal ``FlopCounterMode``'s, B4's and B5's custom ops counted by their
+  formulas; sharded, the four ranks do at least the unsharded work.
+  ``orchestrate`` leaves an error record naming the item of a cell that
+  fails (a bad ``--override``).
 """
 
 import ast
@@ -41,7 +44,6 @@ from repro_torch.launch import analysis, dryrun
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LM = ["granite-8b", "gemma3-1b", "qwen2-72b", "moonshot-v1-16b-a3b",
       "arctic-480b"]
-TODO = "B4/B5 as custom ops"
 
 _JAX_WORKLOADS = """
 import os
@@ -231,7 +233,9 @@ def test_rank_flops_against_an_independent_count(tmp_path, name):
     it (gemma3's one KV head; forward, and in training the two backward
     matmuls): the resolver's choice, the JAX package's too.  A decode
     step and the MoE do more (the MoE's one token group at smoke size
-    rides no batch axis, so each "data" rank dispatches all of it)."""
+    rides no batch axis, so each "data" rank dispatches all of it, as
+    the JAX layout does; ``test_sharded_decode_does_the_unsharded_work``
+    holds the dense decode)."""
     import torch
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.utils.flop_counter import FlopCounterMode
@@ -261,17 +265,61 @@ def test_rank_flops_against_an_independent_count(tmp_path, name):
                 one["flops_per_chip"] + extra, shape
 
 
+@pytest.mark.parametrize("name", ["granite-8b", "gemma3-1b", "qwen2-72b"])
+def test_sharded_decode_does_the_unsharded_work(tmp_path, name):
+    """On (2, 2) the four ranks of a dense decode step do exactly the
+    unsharded step's FLOPs plus the K/V projections replicated over
+    "model" where the KV heads do not divide it (gemma3's one KV head),
+    the check ``test_rank_flops_against_an_independent_count`` makes of a
+    prefill and a training step.  Without the reduction of the attention
+    and MLP outputs over "model" into the residual stream, DTensor split
+    the stream by rows over "model" and the next projections ran on whole
+    weights (granite-8b: 7.3% more work)."""
+    cfg = get_arch(name).smoke_config
+    shape = KINDS[1]
+    assert shape.kind == "decode" and not cfg.moe
+    one, four = (dryrun.run_cell(name, shape.name, tag, str(tmp_path),
+                                 shape=shape, smoke=True, mesh_shape=mesh)
+                 for tag, mesh in (("one", (1,)), ("four", (2, 2))))
+    kv = (2 * shape.global_batch * cfg.d_model * cfg.n_kv_heads
+          * cfg.d_head * 2 * cfg.n_layers)
+    extra = kv if cfg.n_kv_heads % 2 else 0
+    assert 4 * four["flops_per_chip"] == one["flops_per_chip"] + extra > 0
+
+
 @pytest.mark.parametrize("name,shape", [
     ("gat-cora", GNNShape("full_graph_sm", 512, 2048, 16, 4)),
     ("dcn-v2", RecsysShape("train_batch", 1024, "train")),
+    ("gin-tu", GNNShape("molecule", 240, 512, 16, 3, n_graphs=8)),
+    ("equiformer-v2", GNNShape("molecule", 240, 512, 16, 1, n_graphs=8)),
+    ("dcn-v2", RecsysShape("retrieval_cand", 2, "retrieval",
+                           n_candidates=512)),
 ])
-def test_gnn_and_dcn_cells_raise_on_a_mesh(tmp_path, name, shape):
-    with pytest.raises(NotImplementedError, match=TODO):
-        dryrun.run_cell(name, shape.name, "test", str(tmp_path),
-                        shape=shape, smoke=True, mesh_shape=(2, 2))
-    # without a mesh the workloads build as before
-    assert get_arch(name).workload_fn(
-        get_arch(name).smoke_config, shape, None).kind == "train"
+def test_gnn_and_dcn_cells_trace_on_a_mesh(tmp_path, name, shape):
+    """The cells trace on (2, 2) (records ``"ok"``, collectives moved).
+    Unsharded, ``RankCounter``'s FLOPs are ``FlopCounterMode``'s, torch's
+    own counter through its own dispatch, which counts B4's and B5's
+    custom ops by their registered formulas; on (2, 2) the four ranks do
+    at least the unsharded work (edges and batch rows split over "data",
+    the per-edge work and the lookups repeated on each "model" rank)."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    arch = get_arch(name)
+    one = dryrun.run_cell(name, shape.name, "one", str(tmp_path),
+                          shape=shape, smoke=True, mesh_shape=(1,))
+    wl = arch.workload_fn(arch.smoke_config, shape, None)
+    with FakeTensorMode():
+        args = dryrun.local_args(wl, shape, lambda d, t: torch.empty(
+            d, dtype=t))
+        with FlopCounterMode(display=False) as fc:
+            wl.fn(*args)
+    assert one["flops_per_chip"] == fc.get_total_flops() > 0
+    four = dryrun.run_cell(name, shape.name, "test", str(tmp_path),
+                           shape=shape, smoke=True, mesh_shape=(2, 2))
+    assert four["status"] == "ok" and four["collective_bytes_per_chip"] > 0
+    assert 4 * four["flops_per_chip"] >= one["flops_per_chip"]
 
 
 def test_orchestrate_writes_error_records_naming_the_item(tmp_path,
@@ -279,14 +327,17 @@ def test_orchestrate_writes_error_records_naming_the_item(tmp_path,
     cells = [("gat-cora", "full_graph_sm", "single"),
              ("dcn-v2", "serve_p99", "multi")]
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    # no config has this field: each cell fails, naming it
+    item = "no_such_field"
     # the two cells end in either order; failures come in the cells' order
     failures = dryrun.orchestrate(str(tmp_path), cells=cells, jobs=2,
-                                  tag="l2", n_layers=2)
+                                  tag="l2", n_layers=2,
+                                  overrides=f"{item}=1")
     assert failures == cells
     for a, s, m in cells:
         with open(dryrun.cell_path(str(tmp_path), a, s, m, "l2")) as f:
             rec = json.load(f)
-        assert rec["status"] == "error" and TODO in rec["stderr"]
+        assert rec["status"] == "error" and item in rec["stderr"]
 
 
 def test_production_mesh_needs_its_world():
@@ -296,7 +347,8 @@ def test_production_mesh_needs_its_world():
         mesh_lib.make_production_mesh()
     assert mesh_lib.production_shape(True) == ((2, 16, 16),
                                                ("pod", "data", "model"))
-    assert common.MESH_TODO.endswith(TODO)
+    # every arch runs on a mesh: nothing refuses one
+    assert not hasattr(common, "no_mesh")
 
 
 @pytest.mark.parametrize("name", ["granite-8b", "moonshot-v1-16b-a3b"])
@@ -324,3 +376,31 @@ def test_real_run_counts_what_the_dry_run_counts(tmp_path, monkeypatch,
         assert real["flops"] == rec["flops_per_chip"] > 0
         assert real["collectives"] == sum(rec["collectives"].values()) > 0
         assert real["peak_bytes"] is None      # measured on a card only
+
+
+@pytest.mark.parametrize("name,shape", [
+    ("gin-tu", GNNShape("minibatch_lg", 240, 512, 16, 3)),
+    ("gat-cora", GNNShape("full_graph_sm", 240, 512, 16, 4)),
+    ("equiformer-v2", GNNShape("molecule", 240, 512, 16, 1, n_graphs=8)),
+    ("dcn-v2", RecsysShape("train_batch", 64, "train")),
+])
+def test_real_graph_run_counts_what_the_dry_run_counts(tmp_path,
+                                                       monkeypatch, name,
+                                                       shape):
+    """``run_real`` of the cells ``chip_smoke.py`` phase 17 (c) holds on
+    the card, whole (``n_layers=None``), here on the CPU at smoke size on
+    a (2, 2) mesh: the FLOPs and collectives of the dry run exactly; the
+    CPU launches no kernel."""
+    import repro_torch.configs as configs
+    from repro_torch.launch import mesh as mesh_lib
+
+    orig = configs.get_arch
+    monkeypatch.setattr(configs, "get_arch", lambda n: dataclasses.replace(
+        orig(n), config=orig(n).smoke_config, shapes=(shape,)))
+    monkeypatch.setattr(mesh_lib, "production_shape",
+                        lambda multi=False: ((2, 2), ("data", "model")))
+    real = dryrun.run_real(name, shape.name, n_layers=None, device="cpu")
+    rec = dryrun.run_cell(name, shape.name, "single", str(tmp_path))
+    assert real["flops"] == rec["flops_per_chip"] > 0
+    assert real["collectives"] == sum(rec["collectives"].values()) > 0
+    assert real["launches"] == {} and real["peak_bytes"] is None

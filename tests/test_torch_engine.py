@@ -39,10 +39,9 @@ def _discover_both(graph, **cfg):
     ("bursty", lambda: powerlaw_bursty(5), dict(delta=12, l_max=3, omega=2)),
     ("bursty-l7", lambda: powerlaw_bursty(5),
      dict(delta=30, l_max=7, omega=2)),
-    ("collegemsg-like", lambda: j_graphs.make("collegemsg-like"),
-     dict(delta=900, l_max=3, omega=6)),
 ])
 def test_discover_counts_equal_jax(name, make, cfg):
+    """(The collegemsg-like case is in test_torch_engine_collegemsg.py.)"""
     j, t = _discover_both(make(), **cfg)
     assert t.counts == j.counts
     assert (t.n_zones, t.e_cap, t.overflow) == (j.n_zones, j.e_cap,
@@ -175,7 +174,7 @@ _CLI = ["--device", "cpu", "--backend", "cuda", "--dataset",
         "collegemsg-like", "--delta", "60", "--l-max", "3", "--omega", "6"]
 
 
-def test_stream_still_raises_naming_its_slice(tmp_path):
+def test_stream_ends_at_the_batch_counts_in_one_summary_schema(tmp_path):
     """Streaming (slice 4) is ported, so ``--stream`` no longer raises: it
     replays the dataset through ``engine.stream()`` and ends at the batch
     run's counts.  Both modes write one summary schema, the JAX package's
@@ -324,16 +323,7 @@ def _mine(*args):
         capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
 
 
-def test_mine_cli_check_sequential_on_cpu():
-    out = _mine("--device", "cpu", "--backend", "cuda", "--dataset",
-                "collegemsg-like", "--delta", "900", "--l-max", "3",
-                "--omega", "6", "--check-sequential")
-    assert out.returncode == 0, out.stderr
-    assert "sequential TMC-analog (backend 'cuda')" in out.stdout
-    assert "exact match: True" in out.stdout
-
-
-def test_mine_cli_stream_not_ported():
+def test_mine_cli_stream_reports_the_frontier_and_a_snapshot():
     """``--stream`` runs as a command (slice 4 is ported): the frontier
     report, then the final snapshot."""
     out = _mine(*_CLI, "--stream", "--chunk-edges", "8000")
