@@ -151,10 +151,26 @@ launch, and checks them:
     the 16 x 16 mesh (a fake world, real CUDA tensors of a rank's size):
     FLOPs equal to the dry run's, ``max_memory_allocated`` within 0.5-2 x
     its per-rank peak; B3's launches as (a) predicts, every other count 0;
-18. one JSON line naming every kernel with its launches, error and times;
-19. last line: ``{"ok": true, "device": {...}}``.
+18. the quickstart (``repro_torch.examples.quickstart``: a
+    5,000-edge ``triadic_stream`` at delta=120, l_max=4, omega=8 on
+    ``backend="cuda"``): (a) its printed lines on the card; (b) its counts
+    byte for byte those of the same calls on the CPU (the plain versions)
+    and of the card's ``sequential``, every printed line the same; (c) one
+    B1 launch per ``discover`` and one B3 launch for ``sequential``, and
+    the engine's counters; (d) ms per synced ``discover``; (e) the dense
+    kernel's one-zone entry ``ops.scan_zone`` on the largest real zone of
+    the full-size layout's widest bucket against ``ref.scan_zone`` (phase
+    3's plain run of that bucket, ``largest_zone``), and (f) B1 on phase
+    3's full-size flat stream against the per-zone oracle
+    ``ref.scan_flat_ref``, run here on the host's CPU, on the zones of
+    the stream's least capacity (``narrowest_slots``: seconds, where the
+    wider zones take minutes), both variants, slot for slot;
+    (g) the modelled bytes of one B1 launch on that stream
+    (``planner.fused_traffic_bytes``) over phase 3's B1 time;
+19. one JSON line naming every kernel with its launches, error and times;
+20. last line: ``{"ok": true, "device": {...}}``.
 
-Every path of phases 5-7 and 9-17 (but for phase 12's threaded check)
+Every path of phases 5-7 and 9-18 (but for phase 12's threaded check)
 runs with the kernels' launch counts
 set to 0 just before it and read just after; a kernel its path should
 launch but did not (or, where a count is set, launched another number of
@@ -338,6 +354,11 @@ DRY_MEM = (0.5, 2.0)
 #: the kernels (c) must launch, each on some cell
 DRY_KERNELS = ("segment_spmm", "segment_spmm_backward",
                "embedding_bag_fields", "embedding_bag_fields_backward")
+
+
+# the quickstart's launches (phase 18): one B1 per discover, one B3 for
+# sequential
+QS_EXPECT = {"fused_zone_scan_flat": 2, "zone_scan_dense": 1}
 
 
 def log(msg: str) -> None:
@@ -699,7 +720,8 @@ def check_flat(name, fl, *, delta, l_max, with_ts):
 
 
 def check_dense(name, b, *, delta, l_max):
-    """Dense kernel, both variants, vs the plain expansion on one bucket.
+    """Dense kernel, both variants, vs the plain expansion on one bucket;
+    returns the tensors, the plain outputs, their seconds and the error.
 
     One plain run with ``with_ts`` is the reference of both variants: its
     code and length are the plain ``with_ts=False`` outputs (the CPU tests
@@ -725,7 +747,7 @@ def check_dense(name, b, *, delta, l_max):
         f"max_abs_err={err} (with_ts: {err_ts}), plain {plain_s:.1f}s")
     if err or err_ts:
         raise SystemExit(f"dense kernel != plain version on {name}")
-    return args, plain_s, max(err, err_ts)
+    return args, plain, plain_s, max(err, err_ts)
 
 
 def dense_lane_steps(args, *, delta, l_max):
@@ -3235,6 +3257,192 @@ def shard_dry_phase(graph) -> tuple[int, dict]:
     return launches, real_launches
 
 
+# -- the quickstart (phase 18) ---------------------------------------------
+
+def largest_zone(b, plain) -> tuple:
+    """``(bucket label, row, its arrays u, v, t, valid, the reference's
+    code, length, ts on it)`` for the real zone with the most valid edges
+    in bucket ``b``, from ``plain``, phase 3's plain ``with_ts`` run of
+    ``b`` (:func:`check_dense`).  ``ref.scan_zone`` is ``scan_zones`` of
+    one row and a row's outputs depend on that row alone, so the batch's
+    row is ``ref.scan_zone``'s output on it."""
+    row = int(np.argmax(np.asarray(b.valid).sum(axis=1)))
+    return (b.label, row,
+            tuple(np.asarray(x[row]) for x in (b.u, b.v, b.t, b.valid)),
+            tuple(x[row].cpu() for x in plain))
+
+
+def narrowest_slots(fl):
+    """The slots of the flat stream's zones that span its least zone
+    capacity (a zone spans its bucket's capacity in slots): the cut on
+    which phase 18 (f) runs ``ref.scan_flat_ref``.  The per-zone oracle
+    is a per-edge torch loop; on the full-size stream's wider zones it
+    takes minutes, on these seconds."""
+    zid = np.asarray(fl.zone_id)
+    caps = np.bincount(zid[zid >= 0])
+    least = caps[caps > 0].min()
+    return (zid >= 0) & (caps[np.maximum(zid, 0)] == least)
+
+def run_quickstart(device):
+    """``quickstart.main(device)`` with its printed lines captured, and
+    each ``discover`` / ``sequential`` call recorded as ``(method, engine,
+    result, synced seconds)``.  Returns ``(result, lines, calls)``."""
+    import contextlib
+    import io
+
+    import torch
+    from repro_torch.core import PTMTEngine
+    from repro_torch.examples import quickstart
+
+    calls = []
+    orig = {m: getattr(PTMTEngine, m) for m in ("discover", "sequential")}
+
+    def tap(method):
+        def run(self, graph):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = orig[method](self, graph)
+            torch.cuda.synchronize()
+            calls.append((method, self, res, time.perf_counter() - t0))
+            return res
+        return run
+
+    buf = io.StringIO()
+    for m in orig:
+        setattr(PTMTEngine, m, tap(m))
+    try:
+        with contextlib.redirect_stdout(buf):
+            res = quickstart.main(device=device)
+    finally:
+        for m, fn in orig.items():
+            setattr(PTMTEngine, m, fn)
+    return res, buf.getvalue().splitlines(), calls
+
+
+def hold_slots(label, outs, want, keep=None) -> int:
+    """Fails unless every kernel output equals its reference slot for
+    slot (on the slots ``keep`` only, where given); returns the largest
+    absolute difference (0)."""
+    import torch
+
+    outs = [o.cpu() for o in outs]
+    want = [torch.as_tensor(w) for w in want]
+    if keep is not None:
+        keep = torch.as_tensor(keep)
+        outs, want = [o[keep] for o in outs], [w[keep] for w in want]
+    err = max_err(outs, want)
+    log(f"[quickstart] {label}: max_abs_err={err}")
+    if err:
+        raise SystemExit(f"{label}: kernel != reference")
+    return err
+
+
+def quickstart_phase(fl, zone, keep, *, flat_ms, smi) -> tuple[dict, dict]:
+    """Phase 18 (see the module docstring).  ``zone`` is
+    :func:`largest_zone` of phase 3's largest bucket, ``keep`` the slots
+    of ``fl`` that (f) holds.  Returns the quickstart run's kernel
+    launches and each zone-scan variant's largest error in (e) and (f)."""
+    import torch
+    from repro_torch.core import encoding, planner
+    from repro_torch.kernels.zone_scan import ops, ref
+
+    # (a), (c), (d): the quickstart on the card, every launch counted
+    (res, lines, calls), dt, counts = run_counted(
+        "quickstart", lambda: run_quickstart(DEVICE), QS_EXPECT)
+    for line in lines:
+        log(f"[quickstart] | {line}")
+    others = {k: v for k, v in counts.items() if v and k not in QS_EXPECT}
+    if any(counts[k] != n for k, n in QS_EXPECT.items()) or others:
+        raise SystemExit(f"quickstart launches {counts}, expected "
+                         f"{QS_EXPECT} and no other")
+    engines = {id(engine) for _, engine, _, _ in calls}
+    stats = calls[0][1].stats
+    want = dict(discover_calls=2, sequential_calls=1, fused_runs=2,
+                launches=2, plan_cache_hits=1, plan_cache_misses=1)
+    got = {k: getattr(stats, k) for k in want}
+    if len(engines) != 1 or got != want \
+            or res.layout["execution"]["path"] != "fused":
+        raise SystemExit(f"quickstart engine: {len(engines)} engine(s), "
+                         f"stats {got} (expected {want}), path "
+                         f"{res.layout['execution']['path']!r}")
+    discover_ms = [s * 1e3 for m, _, _, s in calls if m == "discover"]
+    seq = next(r for m, _, r, _ in calls if m == "sequential")
+    log(f"[quickstart] {smi}: discover " + ", ".join(
+        f"{ms:.3f}" for ms in discover_ms) + " ms (synced, host clock; the "
+        f"first plans the zones), sequential "
+        f"{[s for m, _, _, s in calls if m == 'sequential'][0] * 1e3:.3f} "
+        f"ms; launches B1 {counts['fused_zone_scan_flat']}, B3 "
+        f"{counts['zone_scan_dense']}; engine {got}; main() {dt:.3f}s")
+
+    # (b) the same calls on the CPU: the kernels' plain versions
+    t0 = time.perf_counter()
+    cpu_res, cpu_lines, _ = run_quickstart("cpu")
+    cpu_s = time.perf_counter() - t0
+    digests = {counts_digest(r.counts) for r in (res, seq, cpu_res)}
+    if len(digests) != 1 or res.counts != cpu_res.counts \
+            or seq.counts != res.counts or lines != cpu_lines:
+        raise SystemExit("quickstart: the card's counts or lines differ "
+                         "from the CPU's or from its sequential baseline")
+    log(f"[quickstart] (b) card == CPU == the card's sequential, byte for "
+        f"byte ({len(res.counts)} codes, {res.total_processes()} "
+        f"processes, digest {digests.pop()}), every printed line the same; "
+        f"the CPU run {cpu_s:.1f}s")
+
+    # (e), (f): the kernels against the references.  One with_ts run of
+    # each reference is the reference of both variants (its code and
+    # length are the plain with_ts=False outputs, as in check_dense)
+    d, lm = FULL_PARAMS["delta"], FULL_PARAMS["l_max"]
+    errs = {}
+    label, zone_row, arrays, zone_want = zone
+    args = [torch.as_tensor(x, device=DEVICE) for x in arrays]
+    t0 = time.perf_counter()
+    flat_want = ref.scan_flat_ref(
+        *(torch.as_tensor(x) for x in (fl.u, fl.v, fl.t, fl.valid)),
+        torch.as_tensor(np.where(keep, fl.zone_id, -1)), delta=d, l_max=lm,
+        with_ts=True)
+    oracle_s = time.perf_counter() - t0
+    for ops_mod in kernel_ops():
+        ops_mod.reset_launches()
+    for with_ts in (False, True):
+        out = ops.scan_zone(*args, delta=d, l_max=lm, with_ts=with_ts)
+        errs[VARIANT_DENSE[with_ts]] = hold_slots(
+            f"(e) ops.scan_zone with_ts={with_ts} on bucket {label} row "
+            f"{zone_row} ({int(arrays[3].sum())} edges of {arrays[0].size} "
+            f"slots) vs ref.scan_zone (phase 3's plain run of the bucket)",
+            [x for x in out if x is not None],
+            zone_want if with_ts else zone_want[:2])
+    flat = flat_tensors(fl, DEVICE)
+    held_zones = len(np.unique(np.asarray(fl.zone_id)[keep]))
+    held_valid = int((np.asarray(fl.valid)[keep] != 0).sum())
+    for with_ts in (False, True):
+        out = ops.launch_kernel(*flat, delta=d, l_max=lm, blk=fl.blk,
+                                with_ts=with_ts)
+        errs[VARIANT_FLAT[with_ts]] = hold_slots(
+            f"(f) B1 with_ts={with_ts} on the full-size stream ({fl.n_slots} "
+            f"slots, {fl.valid_edges} valid, {fl.n_zones} zones) vs "
+            f"ref.scan_flat_ref on the {held_zones} zones of its least "
+            f"capacity ({int(keep.sum())} slots, {held_valid} valid; the "
+            f"oracle {oracle_s:.1f}s on the host's CPU)",
+            out, flat_want if with_ts else flat_want[:2], keep)
+    torch.cuda.synchronize()
+    held = {k: v for ops_mod in kernel_ops()
+            for k, v in ops_mod.launches.items() if v}
+    if held != dict.fromkeys(VARIANT_FLAT.values(), 1) | dict.fromkeys(
+            VARIANT_DENSE.values(), 1):
+        raise SystemExit(f"(e)-(f) launches {held}, expected one of each "
+                         "zone-scan variant")
+    del flat, args
+
+    # (g) the traffic model over phase 3's measured B1 time
+    traffic = planner.fused_traffic_bytes(fl, lm)
+    log(f"[quickstart] (g) {smi}: fused_traffic_bytes {traffic} (a model: "
+        f"{fl.n_slots} slots x 5 int32 inputs, {fl.n_blocks} block ends, "
+        f"{encoding.n_limbs(lm) + 1} int32 outputs written and read back) "
+        f"over B1's {flat_ms:.4f} ms on it = "
+        f"{traffic / (flat_ms * 1e-3) / 1e9:.1f} GB/s modelled")
+    return {k: counts[k] for k in QS_EXPECT}, errs
+
+
 _ZOO_PHASES = """
 import sys, time
 sys.path.insert(0, "src")
@@ -3302,7 +3510,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: PyTorch sees no CUDA device", file=sys.stderr)
         return 2
-    from repro_torch.core import MiningConfig, PTMTEngine, encoding, oracle
+    from repro_torch.core import (MiningConfig, PTMTEngine, encoding, oracle,
+                                  planner)
     from repro_torch.core.executor import fold_fused
     from repro_torch.data import synthetic_graphs
     from repro_torch.kernels import _build
@@ -3425,8 +3634,8 @@ def main() -> int:
             lane_steps = ref.lane_steps(*args, delta=d, l_max=lm, blk=fl.blk)
             steps = int(lane_steps.sum())
             sweep_counts(f"flat stream ({fl.n_slots} slots)", lane_steps)
-        n_bytes = (5 * 4 * fl.n_slots + 2 * 4 * fl.n_blocks
-                   + (limbs + 1 + (lm if with_ts else 0)) * 4 * fl.n_slots)
+        n_bytes = planner.fused_input_bytes(fl) \
+            + (limbs + 1 + (lm if with_ts else 0)) * 4 * fl.n_slots
         n_ops = steps * (OPS_FIXED + OPS_PER_NODE * (lm + 1))
         timing[name] = (ms, plain_ms, *bound(name, n_bytes, n_ops, ms))
         log(f"[full-size] {name}: kernel {ms:.4f} ms (mean of "
@@ -3447,6 +3656,9 @@ def main() -> int:
     # takes minutes here) on the largest bucket alone, which is also the
     # shape its JSON entry reports
     largest = max(layout.buckets, key=lambda b: b.u.size)
+    if largest.e_cap != max(b.e_cap for b in layout.buckets):
+        raise SystemExit("the full-size layout's largest bucket is not its "
+                         "widest, whose largest zone phase 18 (e) holds")
     total_ms = dict.fromkeys((False, True), 0.0)
     for with_ts in (False, True):
         threads, per_sm = ops.dense_occupancy(lm, with_ts)
@@ -3458,8 +3670,10 @@ def main() -> int:
                 for b in layout.buckets))
     for b in layout.buckets:
         if b is largest:
-            args, plain_s, err = check_dense(
+            args, plain, plain_s, err = check_dense(
                 f"full-size bucket {b.label}", b, delta=d, l_max=lm)
+            qs_zone = largest_zone(b, plain)
+            del plain
         else:
             args = batch_tensors(b, DEVICE)
         lane_steps = dense_lane_steps(args, delta=d, l_max=lm)
@@ -3725,7 +3939,18 @@ def main() -> int:
         dry_launches["embedding_bag_fields_backward"]
     log(f"[shard17] phase {time.perf_counter() - t_phase:.1f}s")
 
-    # -- 18. kernels ----------------------------------------------------
+    # -- 18. the quickstart ----------------------------------------------
+    t_phase = time.perf_counter()
+    qs_launches, qs_errs = quickstart_phase(
+        fl, qs_zone, narrowest_slots(fl),
+        flat_ms=timing["fused_zone_scan_flat"][0], smi=smi)
+    launches += qs_launches["fused_zone_scan_flat"]
+    dense_launches += qs_launches["zone_scan_dense"]
+    for name, err in qs_errs.items():
+        errs[name] = max(errs[name], err)
+    log(f"[quickstart] phase {time.perf_counter() - t_phase:.1f}s")
+
+    # -- 19. kernels ----------------------------------------------------
     rows = (
         ("fused_zone_scan_flat", SRC + "fused_zone_scan.cu", TPU + ":429",
          launches),

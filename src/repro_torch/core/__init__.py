@@ -11,7 +11,7 @@ from . import (
     transitions,
     tzp,
 )
-from .api import DiscoveryResult
+from .api import DiscoveryResult, discover, discover_sequential
 from .backends import available_backends, get_backend, register_backend
 from .config import MiningConfig
 from .engine import EngineStats, PTMTEngine
@@ -32,7 +32,11 @@ __all__ = [
     "aggregation",
     "available_backends",
     "backends",
+    "config",
+    "discover",
+    "discover_sequential",
     "encoding",
+    "engine",
     "expansion",
     "from_edges",
     "get_backend",

@@ -6,6 +6,12 @@ and the lifecycle in :class:`repro_torch.core.engine.PTMTEngine`::
     engine = PTMTEngine(MiningConfig(backend="cuda", delta=600, l_max=6))
     result = engine.discover(graph)
     baseline = engine.sequential(graph)
+
+The JAX package's one-shot ``discover`` / ``discover_sequential`` kwargs
+functions were removed there after a deprecation cycle; the names remain
+importable here too but raise immediately with a pointer at the engine
+API, so a stale call site fails with instructions instead of an
+``ImportError``.
 """
 
 from __future__ import annotations
@@ -13,6 +19,14 @@ from __future__ import annotations
 import dataclasses
 
 from . import transitions
+
+_REMOVED = (
+    "repro_torch.core.{name}(...) was removed; build a PTMTEngine from a "
+    "MiningConfig — PTMTEngine(MiningConfig(delta=..., l_max=...))"
+    ".{method}(graph) — which keeps its zone-plan cache and built kernels "
+    "across calls.  Mesh-sharded mining is "
+    "engine.sharded(graph, mesh, axes)."
+)
 
 
 @dataclasses.dataclass
@@ -47,3 +61,13 @@ def counts_to_result(counts, *, n_zones, e_cap, overflow, delta,
         delta=delta, l_max=l_max, layout=layout,
     )
 
+
+def discover(*args, **kwargs):
+    """REMOVED — use :meth:`repro_torch.core.engine.PTMTEngine.discover`."""
+    raise RuntimeError(_REMOVED.format(name="discover", method="discover"))
+
+
+def discover_sequential(*args, **kwargs):
+    """REMOVED — use :meth:`repro_torch.core.engine.PTMTEngine.sequential`."""
+    raise RuntimeError(
+        _REMOVED.format(name="discover_sequential", method="sequential"))

@@ -25,9 +25,11 @@ Two paths, two sets of terms:
   largest zone capacity a budget holds.
 
 :func:`fused_sweep_slots` / :func:`padded_sweep_slots` are the dispatched
-sweep-work models of the two layouts, and the **config lattice**
-(:class:`ConfigLattice`, :func:`build_config_lattices`) groups co-minable
-configs into shared dominating sweeps.
+sweep-work models of the two layouts, :func:`fused_traffic_bytes` the
+fused launch's traffic model (:func:`fused_input_bytes` its reads), and
+the **config lattice** (:class:`ConfigLattice`,
+:func:`build_config_lattices`) groups co-minable configs into shared
+dominating sweeps.
 
 Estimates are analytic, not measured — they exist to pick sane shapes.
 """
@@ -162,6 +164,33 @@ def fused_sweep_slots(lo, hi, blk: int) -> int:
     (at their row end or on early exit): the steps it really takes are
     :func:`repro_torch.kernels.zone_scan.ref.live_steps`."""
     return int(blk) * int(sum(int(h) - int(l) for l, h in zip(lo, hi)))
+
+
+def fused_input_bytes(fl) -> int:
+    """Bytes one fused launch must read at the least (int32 everywhere):
+    each slot's ``u, v, t, valid, zone_id`` once, 5 x 4 B x ``n_slots``,
+    and each block's ``hi``, 4 B x ``n_blocks`` (the flat kernel reads no
+    ``lo``).  ``fl`` is a :class:`repro_torch.core.tzp.FusedZoneLayout`."""
+    return fl.n_slots * 5 * 4 + fl.n_blocks * 4
+
+
+def fused_traffic_bytes(fl, l_max: int) -> int:
+    """Traffic model of one fused launch: the bytes it must move at the
+    least (int32 everywhere).
+
+    * inputs and descriptors — :func:`fused_input_bytes`;
+    * outputs — per-lane code limbs + length: ``(limbs + 1) x 4 B x
+      n_slots`` written by the kernel, read back by the on-device fold.
+
+    ``fl`` is a :class:`repro_torch.core.tzp.FusedZoneLayout`.  It is a
+    model, not a measurement: a rate made from it is modelled bytes over a
+    measured time.  It is not the JAX package's model, which counts the
+    Pallas launch's chunk loads (each block streaming its ``[lo, hi)``
+    window once).  The CUDA kernel stages no such chunks, so this model
+    counts each slot once, the least any implementation must read.
+    """
+    limbs = encoding.n_limbs(l_max)
+    return fused_input_bytes(fl) + fl.n_slots * (limbs + 1) * 4 * 2
 
 
 # ---------------------------------------------------------------------------

@@ -226,3 +226,16 @@ def scan_zones(u, v, t, valid, *, delta: int, l_max: int,
         raise ValueError(f"unsupported device {u.device}")
     return expansion.scan_zones(u, v, t, valid, delta=delta, l_max=l_max,
                                 with_ts=with_ts)
+
+
+def scan_zone(u, v, t, valid, *, delta: int, l_max: int,
+              with_ts: bool = False) -> ZoneResult:
+    """Dense scan of one zone's ``[E]`` edge stream (the reference
+    signature of :func:`repro_torch.core.expansion.scan_zone`).
+
+    CUDA tensors go to the kernel as a ``[1, E]`` launch, counted like
+    every other; CPU tensors to its plain version.
+    """
+    res = scan_zones(u[None], v[None], t[None], valid[None], delta=delta,
+                     l_max=l_max, with_ts=with_ts)
+    return ZoneResult(*(None if x is None else x[0] for x in res))

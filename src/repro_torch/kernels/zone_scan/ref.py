@@ -1,4 +1,10 @@
-"""Plain PyTorch version of the fused flat zone scan.
+"""Plain PyTorch version of the fused flat zone scan, and the oracles.
+
+:func:`scan_zone` / :func:`scan_zones` (re-exported from
+:mod:`repro_torch.core.expansion`) are the reference per-zone scan, the
+plain version of the dense kernel; :func:`scan_flat_ref` runs that scan
+zone by zone over a flat slot stream, a second oracle of the flat kernel
+that shares no code with :func:`fused_zone_scan_torch` below.
 
 The counterpart of the JAX package's compiled lowering
 (``fused_zone_scan_xla``): same contract as the hand-written CUDA kernel in
@@ -48,6 +54,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import encoding
+from repro_torch.core.expansion import ZoneResult, scan_zone, scan_zones
+
+__all__ = ["ZoneResult", "fused_zone_scan_torch", "scan_flat_ref",
+           "scan_zone", "scan_zones"]
 
 #: lockstep steps between retirements of finished lanes
 _RETIRE_EVERY = 16
@@ -292,3 +302,53 @@ def live_steps(u, v, t, valid, zone_id, lo, hi, *, delta: int, l_max: int,
     exactly these)."""
     return int(lane_steps(u, v, t, valid, zone_id, lo, hi, delta=delta,
                           l_max=l_max, blk=blk).sum())
+
+
+def scan_flat_ref(u, v, t, valid, zone_id, *, delta: int, l_max: int,
+                  with_ts: bool = False) -> ZoneResult:
+    """Oracle of the flat kernel: regroup each zone's slots out of the
+    concatenated stream (a zone's slots are time-ordered), run the
+    per-zone reference scan (:func:`scan_zones`) on them, and scatter the
+    results back to their flat slot positions.
+
+    Only a zone's valid slots are regrouped: an invalid edge seeds,
+    extends and times out nothing, so it changes no output.  Zones whose
+    valid slot counts share a power of two go through one padded
+    ``[Z, E]`` batch, padded with invalid copies of each row's last edge
+    (the rows stay time-sorted).  Pad and invalid slots keep length 0 and
+    all-zero codes and timestamps; ``lo``/``hi`` play no part.  Returns a
+    :class:`ZoneResult` of ``code int32[S, L]``, ``length int32[S]`` and,
+    with ``with_ts``, ``ts int32[S, l_max]``, on the inputs' device.
+    """
+    u, v, t, valid, zone_id = (torch.as_tensor(x) for x in
+                               (u, v, t, valid, zone_id))
+    s = u.shape[0]
+    dev = u.device
+    code = torch.zeros((s, encoding.n_limbs(l_max)), dtype=torch.int32,
+                       device=dev)
+    length = torch.zeros(s, dtype=torch.int32, device=dev)
+    ts = (torch.zeros((s, l_max), dtype=torch.int32, device=dev)
+          if with_ts else None)
+    zid = zone_id.to(torch.int64)
+    slots = torch.nonzero((zid >= 0) & (valid != 0)).flatten()
+    if not slots.numel():
+        return ZoneResult(code=code, length=length, ts=ts)
+    # the slots zone by zone, each zone's in stream order
+    order = slots[torch.argsort(zid[slots], stable=True)]
+    _, sizes = torch.unique_consecutive(zid[order], return_counts=True)
+    starts = torch.cumsum(sizes, 0) - sizes
+    size_class = torch.ceil(torch.log2(sizes.to(torch.float64))).long()
+    for c in torch.unique(size_class).tolist():
+        rows = torch.nonzero(size_class == c).flatten()
+        n, first = sizes[rows], starts[rows]
+        col = torch.arange(int(n.max()), device=dev)
+        inside = col < n[:, None]
+        idx = order[first[:, None] + torch.minimum(col, n[:, None] - 1)]
+        res = scan_zones(u[idx], v[idx], t[idx], inside, delta=delta,
+                         l_max=l_max, with_ts=with_ts)
+        dst = idx[inside]
+        code[dst] = res.code[inside]
+        length[dst] = res.length[inside]
+        if with_ts:
+            ts[dst] = res.ts[inside]
+    return ZoneResult(code=code, length=length, ts=ts)

@@ -5,3 +5,7 @@ of :class:`params.ParamSpec`.  The aggregation of every GNN layer goes
 through the segment scatter-sum kernel and every DCN-v2 sparse field
 through the embedding-bag kernel (see :mod:`repro_torch.kernels`).
 """
+
+from . import sharding
+
+__all__ = ["sharding"]

@@ -1,6 +1,6 @@
 """Serving on the port: the multi-tenant motif service and its cluster
 layer, and the LM serving engine (``serving.engine``)."""
 
-from . import cluster, motif
+from . import cluster, engine, motif
 
-__all__ = ["cluster", "motif"]
+__all__ = ["cluster", "engine", "motif"]

@@ -107,3 +107,35 @@ def test_slice_10_modules_are_probed_and_start_no_world():
                          text=True, timeout=300, env=env, cwd=ROOT)
     assert out.returncode == 0, out.stderr
     assert "WORLD False" in out.stdout
+
+
+#: the quickstart and the last public names, each imported by the probe above
+API_MODULES = ("repro_torch.examples.quickstart",
+               "repro_torch.core.api",
+               "repro_torch.kernels.zone_scan.ref",
+               "repro_torch.core.planner")
+
+
+def test_api_modules_are_port_modules():
+    names = {".".join(os.path.relpath(p, os.path.dirname(PORT))[:-3]
+                      .split(os.sep)) for p in _port_files()}
+    assert set(API_MODULES) <= names
+
+
+def test_package_exports_build_nothing_and_start_no_world():
+    """Importing every package with its exports loads no kernel build
+    module (the kernels build inside the call that launches them) and makes no
+    process group."""
+    code = ("import sys\n"
+            "import torch.distributed as dist\n"
+            "import repro_torch.core, repro_torch.data, repro_torch.models\n"
+            "import repro_torch.serving, repro_torch.distributed\n"
+            "import repro_torch.kernels.zone_scan\n"
+            "import repro_torch.examples.quickstart\n"
+            "print('BUILD', 'repro_torch.kernels._build' in sys.modules)\n"
+            "print('WORLD', dist.is_initialized())")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=env, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert "BUILD False" in out.stdout and "WORLD False" in out.stdout
