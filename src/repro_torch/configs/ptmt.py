@@ -51,14 +51,16 @@ MINING_SHAPES = (
 )
 
 
-def mining_workload(cfg: MiningConfig, shape: MiningShape, mesh) -> Workload:
+def mining_workload(cfg: MiningConfig, shape: MiningShape, mesh,
+                    obs=None) -> Workload:
     """The SPMD mining step on every axis of ``mesh`` (a ``DeviceMesh`` of
-    a process group: each rank mines its block of the zones)."""
+    a process group: each rank mines its block of the zones); ``obs``
+    (a live :class:`repro_torch.obs.Observability`) traces every step."""
     axes = tuple(mesh.mesh_dim_names)
     fn = mining.make_mine_fn(
         mesh, axes, delta=cfg.delta, l_max=cfg.l_max,
         backend=cfg.backend, out_cap=cfg.out_cap,
-        merge_mode=cfg.merge_mode,
+        merge_mode=cfg.merge_mode, obs=obs,
     )
     sds = mining.input_specs(shape.n_zones, shape.e_cap)
     in_sds = tuple(torch.empty(s, dtype=d, device="meta") for s, d in (

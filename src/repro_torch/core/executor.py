@@ -492,32 +492,54 @@ class MiningExecutor:
         """
         limbs = encoding.n_limbs(self.l_max)
         dev = self.device
+        tracer = self.obs.tracer
         carries = [(aggregation.empty_counts(cap, limbs, device=dev),
                     torch.zeros((), dtype=torch.int32, device=dev))
                    for cap in caps]
         for cu, cv, ct, cvalid, csigns in chunks:
-            res = self._scan(cu, cv, ct, cvalid, with_ts=with_ts)
-            for i, ((d_i, l_i), cap) in enumerate(zip(params, caps)):
-                code_i, len_i = _derive_member(
-                    res.code, res.length, res.ts, d_i=d_i, l_i=l_i,
-                    delta=self.delta, l_max=self.l_max)
-                part = aggregation.aggregate_zones(code_i, len_i, csigns)
-                carry, spilled = carries[i]
-                merged, spill = aggregation.merge_bounded(carry, part,
-                                                          cap=cap)
-                carries[i] = (merged, spilled + spill)
+            with tracer.span("mine.scan", device=dev, zones=cu.shape[0]):
+                res = self._scan(cu, cv, ct, cvalid, with_ts=with_ts)
+            # each member counts its chunk, then the chunk's table with
+            # its carry
+            slots = res.length.numel()
+            rows = sum(2 * slots + cap for cap in caps)
+            with tracer.span("mine.fold", device=dev, rows=rows):
+                for i, ((d_i, l_i), cap) in enumerate(zip(params, caps)):
+                    code_i, len_i = _derive_member(
+                        res.code, res.length, res.ts, d_i=d_i, l_i=l_i,
+                        delta=self.delta, l_max=self.l_max)
+                    part = aggregation.aggregate_zones(code_i, len_i,
+                                                       csigns)
+                    carry, spilled = carries[i]
+                    merged, spill = aggregation.merge_bounded(carry, part,
+                                                              cap=cap)
+                    carries[i] = (merged, spilled + spill)
+            self._count_rows(rows)
         return carries
+
+    def _count_rows(self, rows: int) -> None:
+        """Rows entering this rank's signed counts (its fold)."""
+        if self.obs.enabled:
+            self.obs.metrics.counter("repro_mining_rows_counted_total",
+                                     stage="rank").inc(rows)
 
     def _run_legacy(self, arrays, zc: int) -> CodeCounts:
         """Scan every chunk, then one whole-batch signed count."""
+        dev = self.device
+        tracer = self.obs.tracer
         codes, lengths, signs = [], [], []
-        for cu, cv, ct, cvalid, csigns in self._chunks(arrays, zc):
-            res = self._scan(cu, cv, ct, cvalid)
-            codes.append(res.code)
-            lengths.append(res.length)
-            signs.append(csigns)
-        return aggregation.aggregate_zones(
-            torch.cat(codes), torch.cat(lengths), torch.cat(signs))
+        with tracer.span("mine.scan", device=dev, zones=arrays[0].shape[0]):
+            for cu, cv, ct, cvalid, csigns in self._chunks(arrays, zc):
+                res = self._scan(cu, cv, ct, cvalid)
+                codes.append(res.code)
+                lengths.append(res.length)
+                signs.append(csigns)
+        rows = sum(x.numel() for x in lengths)
+        with tracer.span("mine.fold", device=dev, rows=rows):
+            counts = aggregation.aggregate_zones(
+                torch.cat(codes), torch.cat(lengths), torch.cat(signs))
+        self._count_rows(rows)
+        return counts
 
     def _run_bounded(self, arrays, zc: int, *, pipelined: bool = False,
                      params=None):
@@ -799,9 +821,12 @@ class MiningExecutor:
         run of ``layout`` sweeps (padded to its fold chunk, with this
         executor's sweep bounds) and the fold chunk it folds in."""
         blk, fold_chunk, _ = self._fused_geometry(layout)
-        fl = concat_layout(layout, blk=blk, pad_slots_to=fold_chunk,
-                           delta=self.delta, l_max=self.l_max,
-                           bounds=self.fused_bounds)
+        with self.obs.tracer.span("mine.flatten", zones=layout.n_zones,
+                                  buckets=layout.n_buckets) as sp:
+            fl = concat_layout(layout, blk=blk, pad_slots_to=fold_chunk,
+                               delta=self.delta, l_max=self.l_max,
+                               bounds=self.fused_bounds)
+            sp.set(n_slots=fl.n_slots)
         return fl, fold_chunk
 
     def fused_merge_cap(self, fl, fold_chunk: int) -> int:

@@ -26,6 +26,7 @@ the JAX mesh's axis names; nothing is compiled.
 
 from __future__ import annotations
 
+import itertools
 import math
 
 import torch
@@ -36,6 +37,7 @@ from repro_torch.core.aggregation import CodeCounts
 from repro_torch.core.executor import MiningExecutor, merge_partial_counts
 
 from .collectives import all_gather_tiled, psum
+
 
 def _dims(mesh, axes) -> list[int]:
     names = list(mesh.mesh_dim_names or ())
@@ -96,19 +98,21 @@ def _as_executor(
     agg: str = "auto",
     merge_cap: int | None = None,
     config=None,
+    obs=None,
 ) -> MiningExecutor:
     device = torch.device(mesh.device_type)
     if device.type == "cuda":
         device = torch.device("cuda", torch.cuda.current_device())
     if executor is None and config is not None:
-        executor = MiningExecutor.from_config(config, device=device)
+        executor = MiningExecutor.from_config(config, device=device, obs=obs)
     if executor is None:
         if delta is None or l_max is None:
             raise ValueError(
                 "pass an executor, a MiningConfig, or delta+l_max")
         executor = MiningExecutor(delta=delta, l_max=l_max, backend=backend,
                                   zone_chunk=zone_chunk, agg=agg,
-                                  merge_cap=merge_cap, device=device)
+                                  merge_cap=merge_cap, device=device,
+                                  obs=obs)
     if executor.spec.host_only:
         raise ValueError(
             f"backend {executor.backend!r} is host-only and cannot be "
@@ -135,6 +139,7 @@ def make_mine_fn(
     merge_cap: int | None = None,
     out_cap: int = 65536,
     merge_mode: str = "flat",
+    obs=None,
 ):
     """Build the SPMD mining step for a zone batch.
 
@@ -156,25 +161,64 @@ def make_mine_fn(
                        Duplicate codes collapse at each stage, so per-rank
                        traffic drops from O(n_ranks * out_cap) to
                        O(sum(axis sizes) * out_cap).
+
+    ``obs`` (a :class:`repro_torch.obs.Observability`) goes to the executor
+    the step builds; a given executor keeps its own, and the step emits
+    into the executor's.  When it is live every call is a span tree, each
+    span with a device interval on CUDA and none waiting for the device::
+
+        mine.step (z, e, rank, shard, step: the call's index)
+          mine.scan                  the rank's scan (B3 on cuda)
+          mine.fold                  its signed count (+ bounded merges)
+          mine.merge                 compaction, gathers, merge, flag
+            mine.gather (axis)       one per all-gather stage
+            mine.flag                the overflow flag's sum
+
+    with the counters ``repro_mining_rows_counted_total{stage="rank"|
+    "merge"}`` (rows entering the rank's and the merge's signed counts,
+    from shapes) and ``repro_mining_live_codes_total{stage="merge"}``
+    (the unique codes the rank sends, summed on the device and read when
+    the registry is read).
     """
     if merge_mode not in ("flat", "hierarchical"):
         raise ValueError(f"unknown merge_mode {merge_mode!r}")
     axes = tuple(axes)
     executor = _as_executor(executor, mesh=mesh, delta=delta, l_max=l_max,
                             backend=backend, zone_chunk=zone_chunk,
-                            agg=agg, merge_cap=merge_cap, config=config)
+                            agg=agg, merge_cap=merge_cap, config=config,
+                            obs=obs)
     shards = n_shards(mesh, axes)
     index = shard_index(mesh, axes)
     flat_group = axes_group(mesh, axes)
     dev = executor.device
+    obs = executor.obs
+    tracer = obs.tracer
+    rows_merged = obs.metrics.counter("repro_mining_rows_counted_total",
+                                      stage="merge")
+    live_sent = obs.metrics.counter("repro_mining_live_codes_total",
+                                    stage="merge")
+    rank = dist.get_rank()
+    calls = itertools.count()
 
     def _compact(counts_: CodeCounts, cap: int):
         send_codes = torch.where(
             counts_.unique_mask[:cap, None], counts_.codes[:cap], 0)
         send_counts = torch.where(
             counts_.unique_mask[:cap], counts_.counts[:cap], 0)
-        overflow = (counts_.unique_mask.sum() > cap).to(torch.int32)
+        live = counts_.unique_mask.sum()
+        overflow = (live > cap).to(torch.int32)
+        if obs.enabled:
+            live_sent.inc(live)
         return send_codes, send_counts, overflow
+
+    def _gather_count(send_codes, send_counts, group, axis: str):
+        with tracer.span("mine.gather", device=dev, axis=axis,
+                         rows=send_codes.shape[0]):
+            codes = all_gather_tiled(send_codes, group)
+            counts = all_gather_tiled(send_counts, group)
+        if obs.enabled:
+            rows_merged.inc(codes.shape[0])
+        return aggregation.count_codes(codes, counts)
 
     def _block(x):
         z = x.shape[0]
@@ -186,26 +230,29 @@ def make_mine_fn(
         return torch.as_tensor(x[index * zl:(index + 1) * zl], device=dev)
 
     def step(u, v, t, valid, signs):
-        local, merge_spill = executor.scan_aggregate_partial(
-            *(_block(x) for x in (u, v, t, valid, signs)))
-        cap = min(out_cap, local.counts.shape[0])
-        overflow = merge_spill
-        if merge_mode == "hierarchical":
-            merged = local
-            for axis in reversed(axes):      # innermost (fastest) first
-                send_codes, send_counts, ovf = _compact(merged, cap)
-                overflow = overflow + ovf
-                group = mesh.get_group(axis)
-                merged = aggregation.count_codes(
-                    all_gather_tiled(send_codes, group),
-                    all_gather_tiled(send_counts, group))
-        else:
-            send_codes, send_counts, ovf = _compact(local, cap)
-            overflow = overflow + ovf
-            merged = aggregation.count_codes(
-                all_gather_tiled(send_codes, flat_group),
-                all_gather_tiled(send_counts, flat_group))
-        overflow = psum(overflow, flat_group)
+        z, e = u.shape
+        with tracer.span("mine.step", device=dev, z=z, e=e, rank=rank,
+                         shard=index, step=next(calls)):
+            local, merge_spill = executor.scan_aggregate_partial(
+                *(_block(x) for x in (u, v, t, valid, signs)))
+            cap = min(out_cap, local.counts.shape[0])
+            overflow = merge_spill
+            with tracer.span("mine.merge", device=dev, mode=merge_mode,
+                             cap=cap):
+                if merge_mode == "hierarchical":
+                    merged = local
+                    for axis in reversed(axes):  # innermost (fastest) first
+                        send_codes, send_counts, ovf = _compact(merged, cap)
+                        overflow = overflow + ovf
+                        merged = _gather_count(send_codes, send_counts,
+                                               mesh.get_group(axis), axis)
+                else:
+                    send_codes, send_counts, ovf = _compact(local, cap)
+                    overflow = overflow + ovf
+                    merged = _gather_count(send_codes, send_counts,
+                                           flat_group, ",".join(axes))
+                with tracer.span("mine.flag", device=dev):
+                    overflow = psum(overflow, flat_group)
         return merged, overflow
 
     return step

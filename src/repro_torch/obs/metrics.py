@@ -71,25 +71,49 @@ def _format_labels(labels: dict, extra: dict | None = None) -> str:
 
 
 class Counter:
-    """Monotone counter.  ``inc`` is atomic under the instrument lock."""
+    """Monotone counter.  ``inc`` is atomic under the instrument lock.
 
-    __slots__ = ("name", "labels", "_lock", "_value")
+    ``inc`` also takes a 0-dim tensor, a count the device computed: it is
+    added to an accumulator on the tensor's device (one tensor op, no
+    wait), and read back only when :attr:`value` is read (by
+    :meth:`MetricsRegistry.snapshot` and :meth:`MetricsRegistry.
+    to_prometheus`).  Such a count is not checked for sign, which would
+    need the device's value on the host.
+    """
+
+    __slots__ = ("name", "labels", "_lock", "_value", "_acc")
 
     def __init__(self, name: str, labels: dict):
         self.name = name
         self.labels = dict(labels)
         self._lock = threading.Lock()
         self._value = 0
+        self._acc = None
 
-    def inc(self, n: int | float = 1) -> None:
+    def inc(self, n=1) -> None:
+        if hasattr(n, "add_"):
+            self._inc_tensor(n)
+            return
         if n < 0:
             raise ValueError("counters only go up; use a Gauge")
         with self._lock:
             self._value += n
 
+    def _inc_tensor(self, n) -> None:
+        import torch
+
+        with self._lock, torch.no_grad():
+            if self._acc is None:
+                wide = torch.float64 if n.is_floating_point() else torch.int64
+                self._acc = n.detach().to(wide, copy=True)
+            else:
+                self._acc.add_(n)
+
     @property
     def value(self):
-        return self._value
+        with self._lock:
+            acc = self._acc
+        return self._value if acc is None else self._value + acc.item()
 
 
 class Gauge:

@@ -324,3 +324,197 @@ def test_stopwatch_and_latency_summary():
                            "p99_ms", "max_ms"}
     assert digest["count"] == 4
     assert digest["max_ms"] == pytest.approx(10.0)
+
+
+# -- the port's tracer: span ids, device intervals, device counts -------------
+#
+# A CUDA span's device interval comes from timing events the card records;
+# here a clock on the host's own ``perf_counter`` stands in for it, so the
+# bookkeeping (ids, the bound, the export's device track) is tested on the
+# CPU.  tests/test_torch_mining_trace.py checks the events on the card.
+
+
+class _HostClock:
+    """A :class:`repro_torch.obs.tracing.DeviceClock` whose events are host
+    timestamps, ``lag`` seconds late, complete once ``ready`` says so."""
+
+    lag = 2e-4
+
+    def __init__(self, device):
+        import time
+
+        self.device = device
+        self.name = str(device)
+        self.host0 = time.perf_counter()
+        self.ready = lambda event: True
+
+    def stream(self):
+        return None
+
+    def mark(self, stream):
+        import time
+
+        return time.perf_counter() + self.lag
+
+    def done(self, end):
+        return self.ready(end)
+
+    def resolve(self, start, end):
+        return (start - self.host0) * 1e3, (end - self.host0) * 1e3
+
+    def calibrate(self):
+        pass
+
+    def host_s(self, ms):
+        return self.host0 + ms / 1e3
+
+
+@pytest.fixture
+def host_clock(monkeypatch):
+    from repro_torch.obs import tracing
+
+    monkeypatch.setattr(tracing, "DeviceClock", _HostClock)
+    return _HostClock
+
+
+def test_torch_span_on_cpu_has_no_device_interval():
+    import torch
+
+    from repro_torch.obs.tracing import Tracer
+
+    tr = Tracer()
+    with tr.span("mine.step", device=torch.device("cpu"), step=0):
+        with tr.span("mine.scan", device="cpu"):
+            pass
+    host, device = tr.intervals()
+    assert [n for n, _, _ in host] == ["mine.scan", "mine.step"]
+    assert all(a <= b for _, a, b in host)
+    assert device == [] and tr.device_events() == []
+    assert not any(e.get("cat") == "repro.device"
+                   for e in tr.to_chrome_trace()["traceEvents"])
+
+
+def test_torch_span_ids_link_children_to_their_step():
+    from repro_torch.obs.tracing import Tracer
+
+    tr = Tracer()
+    for step in range(2):
+        with tr.span("mine.step", step=step):
+            with tr.span("mine.scan"):
+                pass
+            with tr.span("mine.merge"):
+                with tr.span("mine.gather", axis="z"):
+                    pass
+    events = tr.events()
+    by_id = {e["args"]["id"]: e for e in events}
+    assert len(by_id) == len(events) == 8          # ids are unique
+    steps = [e for e in events if e["name"] == "mine.step"]
+    assert [s["args"]["step"] for s in steps] == [0, 1]
+    for s in steps:
+        assert s["args"]["parent"] is None
+        assert s["args"]["root"] == s["args"]["id"]
+        kids = [e for e in events if e["args"]["root"] == s["args"]["id"]
+                and e is not s]
+        assert sorted(e["name"] for e in kids) == [
+            "mine.gather", "mine.merge", "mine.scan"]
+        gather = next(e for e in kids if e["name"] == "mine.gather")
+        merge = by_id[gather["args"]["parent"]]
+        assert merge["name"] == "mine.merge"
+        assert merge["args"]["parent"] == s["args"]["id"]
+        for k in kids:   # a child lies inside its step on the host clock
+            assert s["ts"] <= k["ts"]
+            assert k["ts"] + k["dur"] <= s["ts"] + s["dur"]
+
+
+def test_torch_chrome_trace_has_the_device_track_on_the_host_clock(
+        host_clock):
+    from repro_torch.obs.tracing import DEVICE_TID_BASE, Tracer
+
+    tr = Tracer()
+    with tr.span("mine.step", device="cuda:0", step=0):
+        with tr.span("mine.scan", device="cuda:0"):
+            pass
+        with tr.span("mine.host_only"):
+            pass
+    host, device = tr.intervals()
+    assert [n for n, _, _ in device] == ["mine.scan", "mine.step"]
+    spans = {n: (a, b) for n, a, b in host}
+    for name, a, b in device:      # the lag of the stand-in clock
+        assert a - spans[name][0] == pytest.approx(host_clock.lag, abs=1e-4)
+        assert b - spans[name][1] == pytest.approx(host_clock.lag, abs=1e-4)
+    doc = json.loads(json.dumps(tr.to_chrome_trace()))
+    events = doc["traceEvents"]
+    track = [e for e in events if e.get("cat") == "repro.device"]
+    assert {e["tid"] for e in track} == {DEVICE_TID_BASE}
+    names = [e for e in events if e["ph"] == "M"
+             and e.get("tid") == DEVICE_TID_BASE]
+    assert names and names[0]["args"]["name"] == "cuda:0 stream"
+    on_host = {e["name"]: e for e in events if e.get("cat") == "repro"}
+    for e in track:
+        h = on_host[e["name"]]
+        assert e["args"]["id"] == h["args"]["id"]
+        assert e["pid"] == h["pid"]
+        # one ts clock: the device lane starts the lag after the host's
+        assert e["ts"] - h["ts"] == pytest.approx(host_clock.lag * 1e6,
+                                                  abs=100)
+
+
+def test_torch_device_intervals_resolve_oldest_first_and_count_in_bound(
+        host_clock, monkeypatch):
+    from repro_torch.obs import tracing
+
+    monkeypatch.setattr(tracing, "RESOLVE_EVERY", 2)
+    tr = tracing.Tracer(max_events=7)
+    clock = tr._clock("cuda:0")
+    clock.ready = lambda event: False        # nothing has completed yet
+    for i in range(2):
+        with tr.span(f"s{i}", device="cuda:0"):
+            pass
+    assert len(tr._pending) == 2 and tr._device == []
+    clock.ready = lambda event: True         # the next close takes all 3
+    with tr.span("s2", device="cuda:0"):
+        pass
+    assert len(tr._pending) == 0 and len(tr._device) == 3
+    with tr.span("s3", device="cuda:0"):     # 6 held: no room for two
+        pass
+    with tr.span("s4"):                      # room for one
+        pass
+    assert tr.dropped == 1
+    host, device = tr.intervals()
+    assert [n for n, _, _ in host] == ["s0", "s1", "s2", "s4"]
+    assert [n for n, _, _ in device] == ["s0", "s1", "s2"]
+    assert [a for _, a, _ in device] == sorted(a for _, a, _ in device)
+
+
+def test_torch_counter_takes_a_device_count():
+    import torch
+
+    from repro_torch.obs.metrics import MetricsRegistry
+
+    reg = MetricsRegistry()
+    live = reg.counter("repro_mining_live_codes_total", stage="merge")
+    for n in (5, 7, 11):
+        live.inc(torch.tensor(n, dtype=torch.int32).sum())
+    live.inc(2)
+    assert live.value == 25
+    [row] = reg.snapshot()["counters"]
+    assert row == {"name": "repro_mining_live_codes_total",
+                   "labels": {"stage": "merge"}, "value": 25}
+    assert json.loads(json.dumps(reg.snapshot())) == reg.snapshot()
+    assert ('repro_mining_live_codes_total{stage="merge"} 25'
+            in reg.to_prometheus())
+
+
+def test_torch_null_tracer_records_nothing():
+    from repro_torch.obs import NULL_OBS
+    from repro_torch.obs.tracing import NULL_TRACER
+
+    a = NULL_TRACER.span("mine.step", device="cuda:0", step=0)
+    assert a is NULL_TRACER.span("mine.scan", device="cpu")
+    with a as sp:
+        with NULL_TRACER.span("mine.fold", device="cuda:0"):
+            assert sp.set(rows=1) is sp
+    assert NULL_TRACER.events() == [] and NULL_TRACER.device_events() == []
+    assert NULL_TRACER.intervals() == ([], [])
+    assert NULL_OBS.tracer is NULL_TRACER
+    assert NULL_TRACER.to_chrome_trace()["traceEvents"] == []

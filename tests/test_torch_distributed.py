@@ -33,7 +33,7 @@ from repro.core import oracle as jax_oracle
 from repro.core import tzp as jax_tzp
 from repro.distributed import mining as jax_mining
 from repro_torch.core import MiningConfig, MiningExecutor, PTMTEngine, tzp
-from repro_torch.core import ZoneOverflowError, transitions
+from repro_torch.core import ZoneOverflowError, planner, transitions
 from repro_torch.core.convert import counts_to_numpy
 from repro_torch.distributed import collectives, mining
 from repro_torch.serving.cluster import ClusterCoordinator
@@ -223,6 +223,118 @@ def test_one_rank_collectives_and_elastic_mesh(tmp_path):
             elastic.make_mesh_for(2, device_type="cpu")
     moved = elastic.reshard({"a": x}, "cpu")
     assert torch.equal(moved["a"], x)
+
+
+def _step_batch():
+    g = powerlaw_bursty(5)
+    d, lm, om = 12, 3, 2
+    batch = tzp.build_zone_batch(g, tzp.plan_zones(g, delta=d, l_max=lm,
+                                                   omega=om), pad_zones_to=2)
+    return dict(delta=d, l_max=lm, out_cap=512), [
+        torch.as_tensor(x) for x in (batch.u, batch.v, batch.t,
+                                     batch.valid, batch.sign)]
+
+
+def _tree(events, root):
+    """``{name: [subtree, ...]}`` of the spans under ``root``."""
+    out = {}
+    for e in events:
+        if e["args"]["parent"] == root["args"]["id"]:
+            out.setdefault(e["name"], []).append(_tree(events, e))
+    return out
+
+
+@pytest.mark.parametrize("zone_chunk", [0, 157], ids=["legacy", "chunked"])
+@pytest.mark.parametrize("merge_mode", ["flat", "hierarchical"])
+def test_mine_step_span_tree_and_counters(tmp_path, merge_mode, zone_chunk):
+    """A traced step is one ``mine.step`` span over the rank's scan, its
+    fold and the merge (its gather and its flag), and counts the rows of
+    each signed count and the live codes it sends."""
+    from repro_torch import obs
+
+    kw, arrays = _step_batch()
+    live = obs.enabled()
+    z, e = arrays[0].shape
+    with gloo_mesh(tmp_path) as mesh:
+        fn = mining.make_mine_step(mesh, ("z",), zone_chunk=zone_chunk,
+                                   merge_mode=merge_mode, obs=live, **kw)
+        for _ in range(2):
+            got, _ = fn(*arrays)
+    events = live.tracer.events()
+    steps = [ev for ev in events if ev["name"] == "mine.step"]
+    assert [s["args"]["step"] for s in steps] == [0, 1]
+    assert all(s["args"]["parent"] is None for s in steps)
+    assert {k: steps[0]["args"][k] for k in ("z", "e", "rank", "shard")} \
+        == dict(z=z, e=e, rank=0, shard=0)
+    chunks = z // zone_chunk if zone_chunk else 1
+    for s in steps:
+        assert _tree(events, s) == {
+            "mine.scan": [{}] * chunks, "mine.fold": [{}] * chunks,
+            "mine.merge": [{"mine.gather": [{}], "mine.flag": [{}]}]}
+        # the step's spans share its id as their root
+        assert sum(ev["args"]["root"] == s["args"]["id"]
+                   for ev in events) == 1 + 2 * chunks + 3
+    [gather] = {ev["args"]["axis"] for ev in events
+                if ev["name"] == "mine.gather"}
+    assert gather == "z"
+    counters = {(c["name"], c["labels"].get("stage")): c["value"]
+                for c in live.metrics.snapshot()["counters"]}
+    # the chunked fold counts each chunk, then it with its carry
+    cap = planner.default_merge_cap(zone_chunk, e)
+    rows = z * e if not zone_chunk else chunks * (2 * zone_chunk * e + cap)
+    assert counters == {
+        ("repro_mining_rows_counted_total", "rank"): 2 * rows,
+        ("repro_mining_rows_counted_total", "merge"): 2 * 512,
+        ("repro_mining_live_codes_total", "merge"):
+            2 * int(got.unique_mask.sum())}
+
+
+@pytest.mark.parametrize("merge_mode", ["flat", "hierarchical"])
+def test_mine_step_outputs_equal_with_obs_on_and_off(tmp_path, merge_mode):
+    from repro_torch import obs
+
+    kw, arrays = _step_batch()
+    with gloo_mesh(tmp_path) as mesh:
+        outs = [mining.make_mine_step(mesh, ("z",), merge_mode=merge_mode,
+                                      obs=o, **kw)(*arrays)
+                for o in (None, obs.enabled())]
+    (off, off_flag), (on, on_flag) = outs
+    assert int(off_flag) == int(on_flag) == 0
+    for a, b in zip(off, on):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_mine_step_dispatches_the_same_ops_with_obs_off(tmp_path):
+    """Tracing adds no tensor op to the step but the live-code counter's
+    one accumulate (a warm counter's ``add_``); the untraced step is the
+    traced one less that op."""
+    import collections
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch import obs
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    kw, arrays = _step_batch()
+    seen = {}
+    with gloo_mesh(tmp_path) as mesh:
+        for name, o in (("off", None), ("on", obs.enabled())):
+            fn = mining.make_mine_step(mesh, ("z",), obs=o, **kw)
+            fn(*arrays)                      # the counter's first count
+            with Ops() as mode:
+                fn(*arrays)
+            seen[name] = collections.Counter(mode.ops)
+    assert seen["on"] - seen["off"] == collections.Counter(
+        {"aten.add_.Tensor": 1})
+    assert not seen["off"] - seen["on"]
 
 
 # -- four ranks, spawned --------------------------------------------------------

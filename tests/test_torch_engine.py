@@ -115,6 +115,34 @@ def test_ref_backend_with_torch_fused_scan():
     assert t.layout["execution"]["path"] == "fused_torch"
 
 
+@pytest.mark.parametrize("many", [False, True],
+                         ids=["discover", "discover_many"])
+def test_warm_discover_names_the_flat_stream_build(many):
+    """A warm fused ``discover`` (and a co-mined one) builds the flat slot
+    stream under a ``mine.flatten`` span of its call."""
+    from repro_torch import obs
+
+    g = powerlaw_bursty(5)
+    cfg = MiningConfig(backend="cuda", delta=12, l_max=3, omega=2)
+    live = obs.enabled()
+    engine = PTMTEngine(cfg, device="cpu", obs=live)
+    call = ((lambda: engine.discover_many(g, [cfg, cfg.with_updates(
+        delta=6)])) if many else (lambda: engine.discover(g)))
+    call()
+    n_cold = len(live.tracer.events())
+    call()
+    events = live.tracer.events()[n_cold:]
+    assert engine.stats.plan_cache_hits >= 1
+    by_id = {e["args"]["id"]: e for e in events}
+    [flat] = [e for e in events if e["name"] == "mine.flatten"]
+    top = by_id[flat["args"]["root"]]
+    assert top["name"] == ("engine.discover_many" if many
+                           else "engine.discover")
+    assert flat["args"]["n_slots"] > 0 and flat["args"]["zones"] > 0
+    assert top["ts"] <= flat["ts"]
+    assert flat["ts"] + flat["dur"] <= top["ts"] + top["dur"]
+
+
 def test_engine_without_device_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
