@@ -11,8 +11,10 @@ signed sum over identical codes *is* the inclusion-exclusion reconciliation
      each pair of limbs packs into one int64 key, and stable sorts chained
      from the last key to the first give the exact limb-lexicographic order
      (one key up to ``l_max = 7``, two up to the 4-bit digit limit);
-  3. group boundaries by adjacent-difference; segment-sum the weights with
-     an integer ``index_add_`` (exact in any atomic order).
+  3. group boundaries by adjacent-difference; each group's last row,
+     found by a binary search over the group ids, gives its code and the
+     difference of an int64 prefix sum of the weights gives its count:
+     one writer per output row, no atomics, the same bytes on every run.
 
 Every table is static-shape: rows are the compacted sorted unique codes,
 then zero rows.  Invalid slots carry the all-zero code (sorts first) with
@@ -89,14 +91,20 @@ def count_codes(codes, weights) -> CodeCounts:
     boundary = torch.ones(n, dtype=torch.bool, device=dev)
     boundary[1:] = (sorted_codes[1:] != sorted_codes[:-1]).any(dim=1)
     gid = torch.cumsum(boundary, dim=0) - 1
-
-    counts = torch.zeros(n, dtype=torch.int32, device=dev)
-    counts.index_add_(0, gid, sorted_w)
-    unique_codes = torch.zeros_like(sorted_codes)
-    unique_codes[gid] = sorted_codes     # duplicates write identical rows
     n_unique = gid[-1] + 1
+
+    # Each output row is read once from its group's last sorted row: no
+    # atomics (the padding group would serialise on one address) and no
+    # duplicate writes.  Past the last group every end is row n - 1, so
+    # those counts difference to 0 by themselves.
     idx = torch.arange(n, device=dev)
-    unique_mask = (idx < n_unique) & (unique_codes != 0).any(dim=1)
+    ends = torch.searchsorted(gid, idx, right=True) - 1
+    csum = torch.cumsum(sorted_w, dim=0, dtype=torch.int64)[ends]
+    counts = torch.diff(csum, prepend=csum.new_zeros(1))
+    counts = counts.to(torch.int32)      # wraps as an int32 segment sum
+    live = idx < n_unique
+    unique_codes = torch.where(live[:, None], sorted_codes[ends], 0)
+    unique_mask = live & (unique_codes != 0).any(dim=1)
     return CodeCounts(codes=unique_codes, counts=counts,
                       unique_mask=unique_mask)
 

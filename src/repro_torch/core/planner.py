@@ -51,15 +51,19 @@ def _count_row_bytes(limbs: int) -> int:
     Limbs pack pairwise into int64 sort keys; each chained stable sort
     holds its key (gathered through the running permutation), the sorted
     values and the int64 indices, and composes an int64 permutation.  Then
-    the permuted codes and weights, the boundary mask and int64 group ids,
-    and the output table (codes, int32 counts, bool mask).
+    the permuted codes and weights, the boundary mask and int64 group ids;
+    the int64 row indices, group ends (a search of the ids), the weights'
+    int64 prefix sum and its copy gathered at the ends; and the output
+    table, gathered at the group ends (codes gathered then masked, int32
+    counts, bool mask).
     """
     n_keys = -(-limbs // 2)
     sort = n_keys * (8 + 8 + 8 + 8) + 8
     permuted = 4 * limbs + 4
     groups = 1 + 8
-    table = 4 * limbs + 4 + 1
-    return sort + permuted + groups + table
+    segments = 8 + 8 + 8 + 8
+    table = 2 * 4 * limbs + 4 + 1
+    return sort + permuted + groups + segments + table
 
 
 def count_table_bytes(rows: int, l_max: int) -> int:

@@ -49,6 +49,82 @@ def test_count_codes_byte_equal(l_max):
     _assert_tables_equal(*_both(codes, weights))
 
 
+def _distinct(rng, n, limbs):
+    """``n`` distinct non-zero codes of ``limbs`` 28-bit limbs, in
+    limb-lexicographic order."""
+    rows = rng.integers(1, 1 << 28, (2 * n + 8, limbs)).astype(np.int32)
+    return np.unique(rows, axis=0)[:n]
+
+
+def _nonzero_weights(rng, n, bound=5):
+    w = rng.integers(1, bound + 1, n) * rng.choice([-1, 1], n)
+    return w.astype(np.int32)
+
+
+def _merge_shaped(rng, n_live=40, n=600, limbs=2):
+    """What ``_compact`` sends to the merge: one sorted run of unique
+    codes with their signed counts, then all-zero rows (here 93%)."""
+    codes = np.zeros((n, limbs), np.int32)
+    weights = np.zeros(n, np.int32)
+    codes[:n_live] = _distinct(rng, n_live, limbs)
+    weights[:n_live] = _nonzero_weights(rng, n_live)
+    return codes, weights
+
+
+def _shape_case(name, rng):
+    if name == "merge":
+        return _merge_shaped(rng)
+    if name == "merge_4_ranks":
+        codes, weights = _merge_shaped(rng)
+        return np.concatenate([codes] * 4), np.concatenate([weights] * 4)
+    if name == "single_group":
+        codes = np.repeat(_distinct(rng, 1, 3), 257, axis=0)
+        return codes, _nonzero_weights(rng, 257)
+    if name == "all_distinct":
+        codes = rng.permutation(_distinct(rng, 300, 2))
+        return codes, _nonzero_weights(rng, 300)
+    if name == "cancelling":
+        pool = _distinct(rng, 30, 2)
+        w = _nonzero_weights(rng, 30)
+        codes = np.concatenate([pool, pool, _distinct(rng, 10, 2)])
+        weights = np.concatenate([w, -w, _nonzero_weights(rng, 10)])
+        order = rng.permutation(len(codes))
+        return codes[order], weights[order]
+    if name == "past_int32":
+        pool = _distinct(rng, 4, 1)
+        codes = pool[rng.integers(0, 4, 200)]
+        weights = rng.integers(1 << 29, (1 << 31) - 1, 200).astype(np.int32)
+        return codes, weights
+    assert name == "all_padding"
+    return np.zeros((500, 2), np.int32), np.zeros(500, np.int32)
+
+
+@pytest.mark.parametrize("name", [
+    "merge", "merge_4_ranks", "single_group", "all_distinct", "cancelling",
+    "past_int32", "all_padding"])
+def test_count_codes_byte_equal_on_shapes(name):
+    """Inputs shaped as the step's callers send them, and the edge cases
+    of a segment sum: padding-heavy merges, one group, no duplicates,
+    counts cancelling to 0, and sums past 2**31 - 1 (which wrap as JAX's
+    int32 ``segment_sum`` does)."""
+    codes, weights = _shape_case(name, np.random.default_rng(26))
+    if name == "past_int32":
+        assert np.abs(weights.astype(np.int64)).sum() > 2**31 - 1
+    t, j = _both(codes, weights)
+    _assert_tables_equal(t, j)
+    if name == "cancelling":
+        assert (t.unique_mask & (t.counts == 0)).sum() == 30
+
+
+def test_count_codes_is_deterministic():
+    codes, weights = _shape_case("merge_4_ranks", np.random.default_rng(7))
+    codes, weights = torch.as_tensor(codes), torch.as_tensor(weights)
+    first = t_agg.count_codes(codes, weights)
+    second = t_agg.count_codes(codes, weights)
+    for a, b in zip(first, second):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
 def test_count_codes_orders_every_limb():
     """Codes that tie on their first limbs sort by the later ones (the
     second packed key of a 4-limb code)."""
