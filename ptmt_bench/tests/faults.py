@@ -1,58 +1,49 @@
 """Faults planted under the timed path, for the test that sees ``correct``
 come out false, and the control switched on at the tiny sizes.
 
-Each fault breaks the program where it produces its answer, the way a
-wrong optimisation would:
-
-* ``answer``: one count of the answer altered where it is produced, in
-  the merge's gathered counts;
-* ``half``: half of the batch left out, the second half of the rank's
-  zones;
-* ``unchanged``: the step returns its state unchanged, the empty table
-  it starts from, as if the scan never ran.
-
-The exchange between chips cannot be left out of a one-rank cell: on one
-rank the all-gather is the identity.
+The faults are the entry's: each entry has a module of its own,
+``entry_faults/<entry>.py``, found by the entry's name in a drop-in root
+first, then under ``ptmt_bench/tests``.  It holds ``BREAKS``, for each
+fault it plants the checks that fault has to break, and
+``plant(fault)``, which plants it in the process about to run.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 
-def plant(fault: str | None) -> None:
+from .kit import pieces
+
+#: the faults every cell is run with: a one-rank step's (the exchange
+#: between chips is the identity there)
+FAULTS = ("answer", "half", "unchanged")
+
+
+def entry_module(entry: str, root: Path | None = None):
+    """The fault module of ``entry``; raises, naming the file to add,
+    where it has none."""
+    try:
+        return pieces(root).module("entry_faults", entry)
+    except FileNotFoundError:
+        raise FileNotFoundError(
+            f"entry {entry!r} has no fault module: add "
+            f"ptmt_bench/tests/entry_faults/{entry}.py"
+            + (f" or {root}/entry_faults/{entry}.py" if root else "")
+        ) from None
+
+
+def plant(registry, cell: str, fault: str | None,
+          root: Path | None = None) -> None:
+    """Plant ``fault`` of the entry that ``cell``'s configuration
+    drives."""
     if fault is None:
         return
-    import torch
-
-    from repro_torch.core import aggregation, encoding, executor
-    from repro_torch.distributed import mining
-
-    if fault == "answer":
-        gather = mining.all_gather_tiled
-
-        def altered_gather(x, group):
-            out = gather(x, group)
-            if out.dim() == 1:          # the counts, not the codes
-                out = out.clone()
-                out[out.nonzero()[0]] += 1
-            return out
-
-        mining.all_gather_tiled = altered_gather
-    elif fault in ("half", "unchanged"):
-        partial = executor.MiningExecutor.scan_aggregate_partial
-
-        def partial_part(self, u, v, t, valid, signs):
-            if fault == "half":
-                z = u.shape[0] // 2
-                return partial(self, u[:z], v[:z], t[:z], valid[:z],
-                               signs[:z])
-            return (aggregation.empty_counts(
-                u.shape[0] * u.shape[1], encoding.n_limbs(self.l_max),
-                device=u.device),
-                torch.zeros((), dtype=torch.int32, device=u.device))
-
-        executor.MiningExecutor.scan_aggregate_partial = partial_part
-    else:
-        raise ValueError(f"unknown fault {fault!r}")
+    entry = registry.config(registry.cell(cell)["config"])["entry"]
+    module = entry_module(entry, root)
+    if fault not in module.BREAKS:
+        raise ValueError(f"entry_faults/{entry}.py plants no fault "
+                         f"{fault!r}")
+    module.plant(fault)
 
 
 def control(registry) -> None:

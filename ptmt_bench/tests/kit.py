@@ -4,6 +4,15 @@ and a run of ``run.py`` in a fresh process on the CPU.
 A run goes to a subprocess because ``run.py`` refuses to report from a
 process that has loaded JAX, and a test worker may have (the repo's other
 tests import it).
+
+What the tests need of a configuration or an entry beyond what ``run.py``
+reads sits in files of its own, found by name in a drop-in root first,
+then under ``ptmt_bench/tests``:
+
+* ``tiny/<config>.json``: ``overlay``, the sizes that make the
+  configuration run on the CPU in seconds, laid over it key by key, and
+  ``control_breaks``, the checks its control has to break;
+* ``entry_faults/<entry>.py``: the faults of an entry (``faults.py``).
 """
 
 from __future__ import annotations
@@ -13,33 +22,64 @@ import subprocess
 import sys
 from pathlib import Path
 
-from ptmt_bench.registry import CHECKOUT, ROOT
+from ptmt_bench.registry import CHECKOUT, ROOT, Registry
 
-#: the tiny sizes: the same generator and planner at a density whose zones
-#: fit rows of 128 slots, a smaller block, and a control scaled to still
-#: break its guarantee
-TINY = {
-    "ptmt-mining": {"generator": {"n_edges": 3000, "rate": 0.01},
-                    "shape": {"n_zones": 8, "e_cap": 128},
-                    "mining": {"out_cap": 1024},
-                    "control": {"mining": {"out_cap": 64}}},
-}
+TESTS = Path(__file__).resolve().parent
+
+
+def pieces(root: Path | None = None) -> Registry:
+    """Finds the tests' own pieces by name, under a drop-in ``root``
+    first, then under ``ptmt_bench/tests``."""
+    return Registry(roots=[r for r in (root, TESTS) if r is not None])
+
+
+def tiny(config: str, root: Path | None = None) -> dict:
+    """The tiny overlay file of configuration ``config``; raises, naming
+    the file to add, where it has none."""
+    try:
+        path = pieces(root).find("tiny", config, ".json")
+    except FileNotFoundError:
+        raise FileNotFoundError(
+            f"configuration {config!r} has no tiny overlay: add "
+            f"ptmt_bench/tests/tiny/{config}.json"
+            + (f" or {root}/tiny/{config}.json" if root else "")
+        ) from None
+    return json.loads(path.read_text())
+
+
+def check_keys(over: dict, config: dict, where: str = "") -> None:
+    """Every key of an overlay is a key of its configuration, so that a
+    misspelt key cannot leave a size at its full value."""
+    for key, value in over.items():
+        if key not in config:
+            raise ValueError(f"tiny overlay key {where + key!r} is not a "
+                             "key of the configuration")
+        if isinstance(value, dict) and isinstance(config[key], dict):
+            check_keys(value, config[key], f"{where}{key}.")
 
 
 def write_tiny(root: Path, bench: dict | None = None) -> Path:
-    """Tiny copies of the configurations under ``root/configs``, which a
-    registry searching ``root`` first finds in place of the real ones,
-    and ``root/BENCHMARK.json`` (``bench``, by default the committed
-    one)."""
+    """Tiny copies of every configuration of ``bench`` (by default the
+    committed ``BENCHMARK.json``) under ``root/configs``, which a registry
+    searching ``root`` first finds in place of the real ones, and
+    ``root/BENCHMARK.json``.  A configuration is read from ``root`` first
+    (a drop-in's), then from the benchmark's own; one without an overlay
+    raises, and none is written at its full size."""
     from ptmt_bench.control import merged
 
-    (root / "configs").mkdir(parents=True, exist_ok=True)
-    for name, over in TINY.items():
-        config = json.loads((ROOT / "configs" / f"{name}.json").read_text())
-        (root / "configs" / f"{name}.json").write_text(
-            json.dumps(merged(config, over)))
     if bench is None:
         bench = json.loads((CHECKOUT / "BENCHMARK.json").read_text())
+    reg = Registry(roots=[root, ROOT])
+    copies = {}
+    for entry in bench["configs"]:
+        name = entry["name"]
+        config = reg.config(name)
+        over = tiny(name, root)["overlay"]
+        check_keys(over, config)
+        copies[name] = merged(config, over)
+    (root / "configs").mkdir(parents=True, exist_ok=True)
+    for name, config in copies.items():
+        (root / "configs" / f"{name}.json").write_text(json.dumps(config))
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
     return root
 
@@ -53,7 +93,7 @@ from ptmt_bench.registry import Registry, ROOT
 from ptmt_bench.tests import faults
 reg = Registry(roots=[{root!r}, ROOT],
                benchmark={root!r} + "/BENCHMARK.json")
-faults.plant({fault!r})
+faults.plant(reg, {workload!r}, {fault!r}, {root!r})
 if {control!r}:
     faults.control(reg)
 from ptmt_bench import run
@@ -69,8 +109,8 @@ def run_cpu(root: Path, workload: str, *, seed: int = 2**31 + 7,
     argv = ["--workload", workload, "--seed", str(seed), "--seconds", "0.2",
             "--trace", "0"]
     code = DRIVER.format(checkout=str(CHECKOUT), src=str(CHECKOUT / "src"),
-                         root=str(root), fault=fault, control=control,
-                         argv=argv)
+                         root=str(root), workload=workload, fault=fault,
+                         control=control, argv=argv)
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=timeout, cwd=str(CHECKOUT))
     lines = proc.stdout.strip().splitlines()
@@ -79,7 +119,8 @@ def run_cpu(root: Path, workload: str, *, seed: int = 2**31 + 7,
 
 
 #: a later cell's pieces, each in a file of its own: a generator, a traffic
-#: driver, a configuration, a traffic mix and a metric reader
+#: driver, an entry, a configuration, a traffic mix and a metric reader,
+#: and for the tests the configuration's tiny overlay and the entry's faults
 EXTRA_GENERATOR = '''
 import numpy as np
 
@@ -123,24 +164,54 @@ EXTRA_METRIC = '''
 def read(record):
     return record.calls / record.window_s
 '''
+EXTRA_ENTRY = '''
+"""Entry ``ring_step``: a later program path; here ``mine_step``'s step
+under a name of its own."""
+from ptmt_bench.registry import Registry
+
+Session = Registry().entry("mine_step").Session
+'''
+EXTRA_FAULTS = '''
+from ptmt_bench.tests import faults
+
+# ``ring_step`` drives ``mine_step``'s step, so it can have its faults
+_step = faults.entry_module("mine_step")
+BREAKS = _step.BREAKS
+plant = _step.plant
+'''
+#: the overlay that makes the later cell tiny, with a control whose
+#: budget the ring's few codes still overflow
+EXTRA_TINY = {"why": "a ring of 50 nodes, 4,000 edges at one every 90 s, "
+                     "in 8 zones of 128 slots",
+              "overlay": {"generator": {"n_edges": 4000, "n_nodes": 50,
+                                        "gap": 90},
+                          "shape": {"n_zones": 8, "e_cap": 128},
+                          "mining": {"out_cap": 1024},
+                          "control": {"mining": {"out_cap": 4}}},
+              "control_breaks": ["codes_wrong", "overflow"]}
 
 
 def write_extra(root: Path) -> dict:
     """A later cell ``ring.paced`` dropped in under ``root`` as new files
-    only, with a new generator and a new traffic driver; returns the
-    ``BENCHMARK.json`` that lists it beside the committed cells."""
-    from ptmt_bench.control import merged
-
+    only, with a new generator, traffic driver and entry, its
+    configuration at full size and what the tests need of it (a tiny
+    overlay, the entry's faults); returns the ``BENCHMARK.json`` that
+    lists it beside the committed cells."""
     for sub, name, text in (("data", "ring_stream.py", EXTRA_GENERATOR),
                             ("drivers", "paced_loop.py", EXTRA_DRIVER),
-                            ("metrics", "calls_per_s.py", EXTRA_METRIC)):
+                            ("entries", "ring_step.py", EXTRA_ENTRY),
+                            ("metrics", "calls_per_s.py", EXTRA_METRIC),
+                            ("entry_faults", "ring_step.py", EXTRA_FAULTS),
+                            ("tiny", "ring.json", json.dumps(EXTRA_TINY))):
         (root / sub).mkdir(parents=True, exist_ok=True)
         (root / sub / name).write_text(text)
-    base = json.loads((ROOT / "configs" / "ptmt-mining.json").read_text())
-    config = merged(base, TINY["ptmt-mining"])
+    # the committed cell's full shape and a stream as long: the CPU cannot
+    # run it inside ``run_cpu``'s timeout
+    config = json.loads((ROOT / "configs" / "ptmt-mining.json").read_text())
     config["name"] = "ring"
-    config["generator"] = {"name": "ring_stream", "n_edges": 4000,
-                           "n_nodes": 50, "gap": 90}
+    config["entry"] = "ring_step"
+    config["generator"] = {"name": "ring_stream", "n_edges": 1250000,
+                           "n_nodes": 986, "gap": 4}
     (root / "configs").mkdir(parents=True, exist_ok=True)
     (root / "configs" / "ring.json").write_text(json.dumps(config))
     (root / "traffic").mkdir(parents=True, exist_ok=True)

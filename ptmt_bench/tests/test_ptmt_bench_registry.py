@@ -11,7 +11,7 @@ import pytest
 
 from ptmt_bench.registry import CHECKOUT, ROOT, Registry
 
-from .kit import write_extra
+from .kit import tiny, write_extra
 
 BENCH = json.loads((CHECKOUT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -31,7 +31,12 @@ def test_cell_resolves(cell):
     assert hasattr(reg.entry(config["entry"]), "Session")
     assert callable(reg.data(config["generator"]["name"]).generate)
     assert callable(reg.data(config["batch"]["name"]).build)
-    assert set(config["limits"]) == {"codes_wrong", "overflow"}
+    # the checks come from the configuration's limits; its tiny overlay
+    # names those its control breaks
+    assert config["limits"] and all(
+        isinstance(v, (int, float)) for v in config["limits"].values())
+    breaks = tiny(c["config"])["control_breaks"]
+    assert breaks and set(breaks) <= set(config["limits"])
 
 
 @pytest.mark.parametrize("metric", [m["name"] for m in BENCH["end_to_end"]
@@ -95,6 +100,8 @@ def test_extra_pieces_found_without_edits(tmp_path):
     config = reg.config(cell["config"])
     traffic = reg.traffic(cell["traffic"])
     assert traffic["calls_per_s"] == 20
+    assert config["entry"] == "ring_step"
+    assert hasattr(reg.entry(config["entry"]), "Session")
     assert reg.driver(traffic["driver"]).__file__ == str(
         tmp_path / "drivers" / "paced_loop.py")
     u, v, t, n = reg.data(config["generator"]["name"]).generate(
